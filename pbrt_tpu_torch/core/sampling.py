@@ -1,0 +1,104 @@
+"""Monte-Carlo warps and the 1D sampling distribution (port of the parts of
+pbrt_tpu/core/sampling.py that the slice's lights and BSDFs use)."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pbrt_tpu_torch.core.math import PI, PI_OVER_2, PI_OVER_4, vec3, ONE_MINUS_EPSILON
+
+
+def uniform_sample_sphere(u):
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * PI * u[..., 1]
+    return vec3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def concentric_sample_disk(u):
+    """Shirley-Chiu concentric map, branchless."""
+    ox = 2.0 * u[..., 0] - 1.0
+    oy = 2.0 * u[..., 1] - 1.0
+    zero = (ox == 0.0) & (oy == 0.0)
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    safe_x = torch.where(ox == 0.0, 1.0, ox)
+    safe_y = torch.where(oy == 0.0, 1.0, oy)
+    theta = torch.where(use_x, PI_OVER_4 * (oy / safe_x),
+                        PI_OVER_2 - PI_OVER_4 * (ox / safe_y))
+    x = torch.where(zero, 0.0, r * torch.cos(theta))
+    y = torch.where(zero, 0.0, r * torch.sin(theta))
+    return torch.stack([x, y], -1)
+
+
+def cosine_sample_hemisphere(u):
+    d = concentric_sample_disk(u)
+    z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2, min=0.0))
+    return vec3(d[..., 0], d[..., 1], z)
+
+
+def uniform_sample_triangle(u):
+    """Barycentrics (b0, b1) from a uniform square sample."""
+    su0 = torch.sqrt(torch.clamp(u[..., 0], min=0.0))
+    return torch.stack([1.0 - su0, u[..., 1] * su0], -1)
+
+
+def power_heuristic(nf, f_pdf, ng, g_pdf):
+    """Beta=2 power heuristic for MIS."""
+    f = nf * f_pdf
+    g = ng * g_pdf
+    denom = f * f + g * g
+    pos = denom > 0.0
+    return torch.where(pos, f * f / torch.where(pos, denom, 1.0), 0.0)
+
+
+@dataclasses.dataclass
+class Distribution1D:
+    """Piecewise-constant 1D distribution: func [n], cdf [n+1], func_int."""
+    func: torch.Tensor
+    cdf: torch.Tensor
+    func_int: float
+
+    @staticmethod
+    def tables(f):
+        """Host numpy (func, cdf, func_int), as the reference builds them."""
+        f = np.maximum(np.asarray(f, np.float32), 0.0)
+        n = f.shape[-1]
+        cdf = np.concatenate([np.zeros(1, np.float32),
+                              np.cumsum(f, dtype=np.float64).astype(np.float32) / n])
+        func_int = np.float32(cdf[-1])
+        if func_int > 0.0:
+            cdf = cdf / func_int
+        else:
+            cdf = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
+        cdf[-1] = 1.0
+        return f, cdf.astype(np.float32), func_int
+
+    @staticmethod
+    def from_tables(func, cdf, func_int, device) -> "Distribution1D":
+        return Distribution1D(torch.as_tensor(np.array(func, np.float32), device=device),
+                              torch.as_tensor(np.array(cdf, np.float32), device=device),
+                              float(np.float32(func_int)))
+
+    @property
+    def count(self):
+        return self.func.shape[-1]
+
+    def sample_discrete(self, u):
+        """(offset, pmf, u_remapped)."""
+        n = self.count
+        offset = torch.clamp(torch.searchsorted(self.cdf, u, right=True) - 1, 0, n - 1)
+        pmf = self.discrete_pdf(offset)
+        c0 = self.cdf[offset]
+        c1 = self.cdf[offset + 1]
+        ok = c1 > c0
+        u_remap = torch.where(ok, (u - c0) / torch.where(ok, c1 - c0, 1.0), 0.0)
+        return offset, pmf, torch.clamp(u_remap, max=ONE_MINUS_EPSILON)
+
+    def discrete_pdf(self, index):
+        if self.func_int <= 0.0:
+            return torch.zeros(index.shape, dtype=torch.float32, device=index.device)
+        denom = torch.tensor(self.func_int, dtype=torch.float32) * self.count
+        return self.func[index] / denom.item()

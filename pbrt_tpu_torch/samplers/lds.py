@@ -1,0 +1,105 @@
+"""Sobol' generator matrices and evaluation (port of the parts of
+pbrt_tpu/samplers/lds.py that the (0,2)-sequence sampler uses).
+
+The matrices are GENERATED from primitive polynomials over GF(2) with the
+reference's seeded direction numbers, not copied; the first n_dims rows
+do not depend on how many rows are asked for.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+SOBOL_BITS = 32
+
+
+def _is_primitive(poly: int, degree: int) -> bool:
+    """Primitivity of a GF(2) polynomial given as a bitmask."""
+    order = (1 << degree) - 1
+
+    def polymulmod(a, b, mod, deg):
+        r = 0
+        while b:
+            if b & 1:
+                r ^= a
+            b >>= 1
+            a <<= 1
+            if a >> deg & 1:
+                a ^= mod
+        return r
+
+    def polypowmod(a, e, mod, deg):
+        r = 1
+        while e:
+            if e & 1:
+                r = polymulmod(r, a, mod, deg)
+            a = polymulmod(a, a, mod, deg)
+            e >>= 1
+        return r
+
+    if polypowmod(2, order, poly, degree) != 1:
+        return False
+    n = order
+    factors = set()
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            factors.add(d)
+            n //= d
+        d += 1
+    if n > 1:
+        factors.add(n)
+    return all(polypowmod(2, order // q, poly, degree) != 1 for q in factors)
+
+
+@functools.lru_cache(None)
+def _primitive_polys(count: int):
+    """First `count` primitive polynomials, ascending degree, as
+    (degree, interior coefficient bits) pairs."""
+    out = []
+    degree = 1
+    while len(out) < count:
+        for interior in range(1 << max(degree - 1, 0)):
+            poly = (1 << degree) | (interior << 1) | 1
+            if _is_primitive(poly, degree):
+                out.append((degree, interior))
+                if len(out) >= count:
+                    break
+        degree += 1
+    return tuple(out)
+
+
+@functools.lru_cache(None)
+def sobol_matrices(n_dims: int = 2, seed: int = 7) -> np.ndarray:
+    """[n_dims, 32] generator matrices (columns v_k, MSB-aligned), as the
+    reference's `lds.sobol_matrices` builds them."""
+    rng = np.random.default_rng(seed)
+    M = np.zeros((n_dims, SOBOL_BITS), np.int64)
+    for k in range(SOBOL_BITS):
+        M[0, k] = 1 << (31 - k)
+    polys = _primitive_polys(max(n_dims - 1, 0))
+    for d in range(1, n_dims):
+        s, a = polys[d - 1]
+        m = [1]
+        for k in range(2, s + 1):
+            m.append(int(rng.integers(0, 1 << (k - 1))) * 2 + 1)
+        for k in range(s + 1, SOBOL_BITS + 1):
+            new = m[k - s - 1] ^ (m[k - s - 1] << s)
+            for i in range(1, s):
+                if (a >> (s - 1 - i)) & 1:
+                    new ^= m[k - i - 1] << i
+            m.append(new)
+        for k in range(SOBOL_BITS):
+            M[d, k] = (m[k] << (31 - k)) & 0xFFFFFFFF
+    return M
+
+
+def sobol_sample_u32(index: torch.Tensor, dim_matrix, bits: int = SOBOL_BITS):
+    """Sobol' u32 word for u32 `index` (int64 tensor) with one matrix row.
+    `bits` bounds the index's set bits; higher columns contribute zero."""
+    v = torch.zeros_like(index)
+    for b in range(bits):
+        v = v ^ (((index >> b) & 1) * int(dim_matrix[b]))
+    return v

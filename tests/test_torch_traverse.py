@@ -1,0 +1,184 @@
+"""The port's BVH tables and traversal against pbrt_tpu.
+
+- the packer's arrays are bit-equal to pack_pallas_bvh;
+- the plain walk against the Pallas kernel in interpret mode (one block);
+- the plain walk against the XLA walk on the 4,612-triangle bench tables:
+  equal hit and any-hit masks, |dt| <= 1e-6*max(1, t), and order[slot]
+  equal to the reference's triangle on >= 99.9% of hits, every mismatch
+  a tie (the reference triangle's t within 1e-6 of the port's t);
+- the CUDA kernel against the plain walk, bit for bit (needs a card).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from torch_port_helpers import jax_bench_scene, jax_scene_arrays, needs_cuda, rays_at_knot
+
+from pbrt_tpu.accel.bvh import build_bvh as jbuild
+from pbrt_tpu.accel.pallas_traverse import intersect_bvh_pallas, pack_pallas_bvh
+from pbrt_tpu.accel.traverse import intersect_bvh
+from pbrt_tpu.shapes.triangle import intersect_tri
+from pbrt_tpu_torch.accel import traverse as T
+from pbrt_tpu_torch.accel.bvh import build_bvh
+from pbrt_tpu_torch.scene.bridge import tables_from_jax_arrays
+from pbrt_tpu_torch.shapes.triangle import make_knot_mesh
+
+
+def _knot(n_u, n_v):
+    m = make_knot_mesh(n_u, n_v, 0.45)
+    tp = m.p[m.indices]
+    lo, hi = tp.min(1), tp.max(1)
+    eps = 1e-5 * np.maximum(np.abs(lo) + np.abs(hi), 1.0)
+    return tp, lo - eps, hi + eps
+
+
+def _rays(n, seed):
+    o, d = rays_at_knot(n, seed)
+    ah = np.zeros(n, np.uint8)
+    ah[1::2] = 1
+    return o, d, np.full(n, np.inf, np.float32), ah
+
+
+def _plain(kb, o, d, tm, ah):
+    t, s, it = T.traverse(kb, *(torch.as_tensor(a) for a in (o, d, tm, ah)))
+    return t.numpy(), s.numpy(), it.numpy()
+
+
+@pytest.mark.parametrize("n_u,n_v", [(8, 8), (96, 24)])
+def test_pack_matches_reference(n_u, n_v):
+    tp, lo, hi = _knot(n_u, n_v)
+    kb = T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2])
+    _, host = jbuild(lo, hi, with_host=True)
+    pb, order = pack_pallas_bvh(host, tp[:, 0], tp[:, 1], tp[:, 2])
+    M = kb.metas.shape[0]
+    assert np.array_equal(kb.metas.numpy(), np.asarray(pb.metas))
+    assert np.array_equal(kb.nodes.numpy(), np.asarray(pb.nodes).reshape(-1, 16)[:M])
+    assert np.array_equal(kb.tris.numpy(), np.asarray(pb.tris).reshape(-1, 16))
+    assert np.array_equal(kb.order.numpy(), order)
+    assert np.array_equal(kb.seed.numpy(), np.asarray(pb.seed).reshape(8, 16))
+    assert np.array_equal(kb.seed_slots.numpy(), np.asarray(pb.seed_slots))
+    assert np.array_equal(kb.wlo, np.asarray(pb.wlo)) and np.array_equal(kb.whi, np.asarray(pb.whi))
+    assert 0 < kb.max_depth < T.STACK
+
+
+def test_plain_walk_matches_pallas_interpret():
+    tp, lo, hi = _knot(8, 8)             # 128 triangles: interpret mode is slow
+    kb = T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2])
+    _, host = jbuild(lo, hi, with_host=True)
+    pb, _ = pack_pallas_bvh(host, tp[:, 0], tp[:, 1], tp[:, 2])
+    o, d, tm, _ = _rays(T.GROUP, seed=5)
+    t, s, _ = _plain(kb, o, d, tm, np.zeros(T.GROUP, np.uint8))
+    ref = intersect_bvh_pallas(pb, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm),
+                               interpret=True)
+    rt, rs = np.asarray(ref.t), np.asarray(ref.slot)
+    hit = s >= 0
+    assert hit.sum() > 100
+    assert np.array_equal(hit, rs >= 0)
+    assert np.all(np.abs(t[hit] - rt[hit]) <= 1e-6 * np.maximum(1.0, rt[hit]))
+    same = s[hit] == rs[hit]
+    assert same.mean() >= 0.999 or np.all(np.abs(t[hit] - rt[hit])[~same] <= 1e-6)
+
+
+@pytest.fixture(scope="module")
+def bench_tables():
+    _, jcs = jax_bench_scene(large=False)
+    kb = tables_from_jax_arrays(jax_scene_arrays(jcs)[0])["bvh"]
+    return jcs, kb
+
+
+def test_plain_walk_matches_xla_walk(bench_tables):
+    jcs, kb = bench_tables
+    data = jcs.data
+    o, d, tm, ah = _rays(3000, seed=7)
+    t, s, iters = _plain(kb, o, d, tm, ah)
+    args = (data.bvh, data.tri_p0, data.tri_p1, data.tri_p2,
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm))
+    ref = intersect_bvh(*args)
+    ref_any = intersect_bvh(*args, any_hit=True)
+    rt, rtri = np.asarray(ref.t), np.asarray(ref.tri)
+    cl = ah == 0
+    hit = cl & (s >= 0)
+    assert hit.sum() > 500 and (~cl & (s >= 0)).sum() > 500
+    assert np.array_equal(s[cl] >= 0, rtri[cl] >= 0)
+    assert np.array_equal(s[~cl] >= 0, np.asarray(ref_any.tri)[~cl] >= 0)
+    tri = kb.order.numpy()[s[hit]]
+    # The XLA walk forms its edge functions with difference-of-products;
+    # the kernel (and so the port) with plain products. On the knot's
+    # triangles t agrees to 1e-6 relative; on the 20-unit floor and the
+    # light (triangles 0-3) the plain products lose more: measured up to
+    # 2.1e-6 relative here, so those hits are held to 4e-6.
+    tol = np.where(tri >= 4, 1e-6, 4e-6)
+    assert np.all(np.abs(t[hit] - rt[hit]) <= tol * np.maximum(1.0, rt[hit]))
+    same = tri == rtri[hit]
+    assert same.mean() >= 0.999
+    if not same.all():     # every mismatch is a tie: the reference's triangle
+        lanes = np.nonzero(hit)[0][~same]      # sits at the port's t
+        p0, p1, p2 = (np.asarray(x)[rtri[lanes]] for x in (data.tri_p0, data.tri_p1, data.tri_p2))
+        _, t_ref_tri, *_ = intersect_tri(p0, p1, p2, o[lanes], d[lanes], np.full(len(lanes), np.inf))
+        assert np.all(np.abs(np.asarray(t_ref_tri) - t[lanes]) <= 1e-6 * np.maximum(1.0, t[lanes]))
+    assert not np.any(iters & T.OVF_BIT)
+    assert iters.shape == (3,) and np.all(iters > 0)
+
+
+def test_far_miss_rays_retire_at_root(bench_tables):
+    _, kb = bench_tables
+    o, d = T.far_miss_rays(kb, 64, "cpu")
+    t, s, it = T.traverse(kb, o.contiguous(), d.contiguous(),
+                          torch.full((64,), float("inf")), torch.zeros(64, dtype=torch.uint8))
+    assert torch.all(s == -1) and int(it[0]) == 1
+
+
+def test_pack_rejects_what_the_kernel_cannot_take():
+    tp, lo, hi = _knot(8, 8)
+    bvh = build_bvh(lo, hi, leaf_size=16)
+    with pytest.raises(ValueError, match="leaf"):
+        T.pack_kernel_bvh(bvh, tp[:, 0], tp[:, 1], tp[:, 2])
+    with pytest.raises(NotImplementedError):
+        T.traverse(None, torch.zeros((1, 3), device="meta"), None, None, None)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("d_float64", TypeError), ("anyhit_bool", TypeError), ("o_shape", ValueError),
+    ("tmax_strided", ValueError), ("tmax_device", ValueError), ("o_misaligned", ValueError)])
+def test_launch_rejects_what_the_kernel_cannot_take(bench_tables, bad, err):
+    """The CUDA wrapper's checks run before the kernel is built or called,
+    so they are exercised here on CPU tensors."""
+    _, kb = bench_tables
+    n = 16
+    o, d = (torch.as_tensor(a) for a in rays_at_knot(n, seed=3))
+    tm = torch.full((n,), float("inf"))
+    ah = torch.zeros(n, dtype=torch.uint8)
+    if bad == "d_float64":
+        d = d.double()
+    elif bad == "anyhit_bool":
+        ah = ah.bool()
+    elif bad == "o_shape":
+        o = torch.cat([o, o[:, :1]], 1)
+    elif bad == "tmax_strided":
+        tm = torch.full((2 * n,), float("inf"))[::2]
+    elif bad == "tmax_device":
+        tm = tm.to("meta")
+    elif bad == "o_misaligned":
+        o = torch.cat([o[:1], o])[1:]
+    with pytest.raises(err):
+        T._launch(kb, o, d, tm, ah)
+
+
+@pytest.mark.parametrize("large", [False, True])
+def test_kernel_matches_plain_on_card(large):
+    needs_cuda()
+    tp, lo, hi = _knot(*((384, 96) if large else (96, 24)))
+    kb = T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2], device="cuda")
+    o, d, tm, ah = _rays(100_003, seed=11)
+    args = [torch.as_tensor(a, device="cuda") for a in (o, d, tm, ah)]
+    before = T.traverse.launches
+    t, s, it = T.traverse(kb, *args)
+    torch.cuda.synchronize()
+    assert T.traverse.launches == before + 1
+    tp_, sp_, itp = T.traverse_plain(kb, *args)
+    cl = args[3] == 0
+    assert torch.equal(t[cl], tp_[cl]) and torch.equal(s[cl], sp_[cl])
+    assert torch.equal(s[~cl] >= 0, sp_[~cl] >= 0)
+    assert torch.equal(it, itp) and not bool(torch.any(it & T.OVF_BIT))
