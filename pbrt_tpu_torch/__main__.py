@@ -1,8 +1,9 @@
 """CLI: python -m pbrt_tpu_torch [--device cuda|cpu] [--outfile F]
 [--cropwindow X0 X1 Y0 Y1] [--quick] scene.pbrt ...
 
-Renders each scene with the PyTorch port. With --device cuda the BVH walk
-runs the CUDA kernel (built at first use); there is no CPU fallback.
+Renders each scene with the PyTorch port, on the card unless --device cpu
+is given. On the card the BVH and instance walks run the CUDA kernels
+(built at first use); with no card it raises: there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="pbrt_tpu_torch",
                                  description="PyTorch/CUDA port of the pbrt_tpu renderer")
     ap.add_argument("scenes", nargs="+", help=".pbrt scene files")
-    ap.add_argument("--device", default="cpu", help="torch device: cpu or cuda[:i]")
+    ap.add_argument("--device", default="cuda", help="torch device: cuda[:i] or cpu")
     ap.add_argument("--outfile", default="", help="override the output filename")
     ap.add_argument("--cropwindow", nargs=4, type=float, default=None,
                     metavar=("X0", "X1", "Y0", "Y1"))

@@ -60,15 +60,41 @@ class KernelBVH:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def tree_depth(right: np.ndarray, cnts: np.ndarray) -> int:
-    """Deepest node's depth (root = 0) of a depth-first flattened tree."""
+def node_depths(right: np.ndarray, cnts: np.ndarray) -> np.ndarray:
+    """Each node's depth below its root in depth-first flattened trees
+    (node i's children are i+1 and right[i]; a node no parent names is a
+    root, at depth 0)."""
     M = cnts.shape[0]
     depth = np.zeros(M, np.int64)
     for i in range(M):
         if cnts[i] == 0:
             depth[i + 1] = depth[i] + 1
             depth[right[i]] = depth[i] + 1
-    return int(depth.max())
+    return depth
+
+
+def tree_depth(right: np.ndarray, cnts: np.ndarray) -> int:
+    """Deepest node's depth (root = 0) of a depth-first flattened tree."""
+    return int(node_depths(right, cnts).max())
+
+
+def leaf_blocks(offs, cnts, prims, tri_p0, tri_p1, tri_p2):
+    """Leaf blocks of the leaves (offs[k], cnts[k]), in that order ->
+    (blocks [max(L,1),8,16] f32 with p0,p1,p2 in lanes 0:9, slot_prim
+    [max(L,1)*8] i32: the triangle of each slot, -1 on padding). A leaf's
+    j-th triangle is prims[offs[k] + j], an index into tri_p0/1/2."""
+    offs = np.asarray(offs, np.int64)
+    cnts = np.asarray(cnts, np.int64)
+    L = max(len(offs), 1)
+    leaf = np.repeat(np.arange(len(offs)), cnts)
+    j = np.arange(int(cnts.sum())) - np.repeat(np.cumsum(cnts) - cnts, cnts)
+    src = np.asarray(prims)[np.repeat(offs, cnts) + j]
+    blocks = np.zeros((L, LEAF_TRIS, 16), np.float32)
+    for k, p in enumerate((tri_p0, tri_p1, tri_p2)):
+        blocks[leaf, j, 3 * k:3 * k + 3] = np.asarray(p, np.float32)[src]
+    slot_prim = np.full(L * LEAF_TRIS, -1, np.int32)
+    slot_prim[leaf * LEAF_TRIS + j] = src
+    return blocks, slot_prim
 
 
 def pack_kernel_bvh(bvh, tri_p0, tri_p1, tri_p2, device="cpu") -> KernelBVH:
@@ -96,14 +122,9 @@ def pack_kernel_bvh(bvh, tri_p0, tri_p1, tri_p2, device="cpu") -> KernelBVH:
     nodes[:, :12] = np.asarray(bvh.packed)[:, :12]
 
     leaf_ids = np.nonzero(cnts > 0)[0]
-    L = max(len(leaf_ids), 1)
-    blocks = np.zeros((L, LEAF_TRIS, 16), np.float32)
-    slot_order = np.full(L * LEAF_TRIS, -1, np.int32)
-    for b, (s, c) in enumerate(zip(offs[leaf_ids], cnts[leaf_ids])):
-        blocks[b, :c, 0:3] = p0[s:s + c]
-        blocks[b, :c, 3:6] = p1[s:s + c]
-        blocks[b, :c, 6:9] = p2[s:s + c]
-        slot_order[b * LEAF_TRIS:b * LEAF_TRIS + c] = order[s:s + c]
+    blocks, slot_order = leaf_blocks(offs[leaf_ids], cnts[leaf_ids], order,
+                                     tri_p0, tri_p1, tri_p2)
+    L = blocks.shape[0]
     if M >= (1 << 26) or L >= (1 << 26):
         raise ValueError("node or leaf index exceeds the 26-bit payload")
     block_of = np.zeros(M, np.int64)
@@ -134,9 +155,12 @@ def pack_kernel_bvh(bvh, tri_p0, tri_p1, tri_p2, device="cpu") -> KernelBVH:
                      wlo.astype(np.float32), whi.astype(np.float32), depth)
 
 
-def far_miss_rays(kb: KernelBVH, n: int, device):
-    """(o, d) for rays that miss the root box: they retire dead lanes."""
-    far = kb.whi + (kb.whi - kb.wlo) + 1.0
+def far_miss_rays(kb, n: int, device, *others):
+    """(o, d) for rays that miss the root box of kb and of each of others
+    (anything with world bounds wlo/whi): they retire dead lanes."""
+    wlo = np.minimum.reduce([b.wlo for b in (kb,) + others])
+    whi = np.maximum.reduce([b.whi for b in (kb,) + others])
+    far = whi + (whi - wlo) + 1.0
     o = torch.as_tensor(far.astype(np.float32), device=device).expand(n, 3)
     d = torch.tensor([0.0, 0.0, 1.0], device=device).expand(n, 3)
     return o, d
@@ -197,8 +221,9 @@ class _Rays:
                            torch.maximum(t0z, t1z)) * FAR_SCALE
         return (tn <= tf) & (tf > 0.0) & (tn < t_best)
 
-    def tri(self, v, t_best):
-        """v: [n,16] triangle rows -> (hit, t): naive-shear watertight test."""
+    def tri(self, v, t_best, bary=False):
+        """v: [n,16] triangle rows -> (hit, t), or (hit, t, b1, b2) with
+        bary: the naive-shear watertight test."""
         def shear(px, py, pz):
             tx, ty, tz = px - self.ox, py - self.oy, pz - self.oz
             vz = _pick(tx, ty, tz, self.kz)
@@ -217,7 +242,10 @@ class _Rays:
         t_ok = (pos & (t_sc > 1e-4 * det) & (t_sc < t_best * det)) | \
             (~pos & (t_sc < 1e-4 * det) & (t_sc > t_best * det))
         hit = same & (det != 0.0) & t_ok
-        return hit, t_sc * (1.0 / torch.where(det == 0.0, TINY, det))
+        inv_det = 1.0 / torch.where(det == 0.0, TINY, det)
+        if bary:
+            return hit, t_sc * inv_det, e1 * inv_det, e2 * inv_det
+        return hit, t_sc * inv_det
 
 
 def _test_tris(r, rows, slots, active, anyhit, t_best, slot):
@@ -230,8 +258,37 @@ def _test_tris(r, rows, slots, active, anyhit, t_best, slot):
     return t_best, slot
 
 
-def traverse_plain(kb: KernelBVH, o, d, t_max, anyhit):
-    """The kernel's walk as tensor ops: every ray pops one node per step."""
+class WalkCounts:
+    """What a plain walk did, summed over its rays: interior-node pops,
+    triangle tests and instance entries (each also pops one RESTORE), and
+    which table entries it touched. The least work a kernel launch must do
+    on the same rays (its bound) is computed from these."""
+
+    def __init__(self, metas):
+        self.metas = metas
+        self.seen = torch.zeros(metas.shape[0], dtype=torch.bool, device=metas.device)
+        self.interior = self.tri_tests = self.enters = 0
+
+    def step(self, node, interior, leaf_cnt, enters):
+        """One lockstep step: the popped table nodes, which of them are
+        interior, the triangle count of each leaf among them, and the
+        number of instance entries."""
+        self.seen[node] = True
+        self.interior += int(interior.sum())
+        self.tri_tests += int(leaf_cnt.sum())
+        self.enters += int(enters)
+
+    def touched(self):
+        """-> (interior nodes, leaf triangles, instance leaves) touched once
+        or more."""
+        cnt = (self.metas[self.seen].to(torch.int64) >> 2) & 15
+        return (int((cnt == 0).sum()), int(cnt[(cnt > 0) & (cnt < 15)].sum()),
+                int((cnt == 15).sum()))
+
+
+def traverse_plain(kb: KernelBVH, o, d, t_max, anyhit, counts: WalkCounts = None):
+    """The kernel's walk as tensor ops: every ray pops one node per step.
+    counts, if given, adds up what the walk did (WalkCounts)."""
     n = o.shape[0]
     dev = o.device
     r = _Rays(o, d)
@@ -240,6 +297,8 @@ def traverse_plain(kb: KernelBVH, o, d, t_max, anyhit):
     slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
     scnt = int(kb.seed_slots[8])
+    if counts is not None:
+        counts.tri_tests += scnt * n
     for j in range(scnt):
         t_best, slot = _test_tris(r, kb.seed[j].expand(n, 16),
                                   kb.seed_slots[j].expand(n),
@@ -263,6 +322,8 @@ def traverse_plain(kb: KernelBVH, o, d, t_max, anyhit):
         ahl = ah[lane]
 
         leaf = cnt > 0
+        if counts is not None:
+            counts.step(idx, ~leaf, cnt, 0)
         li = torch.nonzero(leaf).squeeze(1)
         if li.numel():
             rli = rl.take(li)

@@ -5,7 +5,8 @@ ray-differential branches).
 Every bounce runs intersect -> material -> NEE -> BSDF sample over the
 whole [N] wavefront with masked lanes. The camera rays take one traversal
 launch; each later bounce takes one merged launch for the next rays and
-the shadow rays. Sample dimensions are static per bounce, so the estimate
+the shadow rays (scenes with instances add one instance-walk launch to
+each). Sample dimensions are static per bounce, so the estimate
 is a pure function of (pixel, sample index).
 """
 from __future__ import annotations
@@ -46,7 +47,9 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         cnt = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in COUNTERS}
         cnt["camera_rays"] += n
 
-        si = intersect(data, flags, o, normalize(d), t_max)
+        # ray time places animated instances (the camera's time dimension)
+        ray_time = sample_dim(spec, px, py, sample_idx, 4) if flags.n_instances > 0 else None
+        si = intersect(data, flags, o, normalize(d), t_max, time=ray_time)
         for bounce in range(max_depth + 1):
             base = bounce_base(bounce)
             if flags.has_infinite:
@@ -112,6 +115,6 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
                 active = active & survive
 
             si, occluded = intersect_pair(data, flags, o, normalize(d), t_max, active,
-                                          o_sh, d_sh, dist_sh, nee_live)
+                                          o_sh, d_sh, dist_sh, nee_live, time=ray_time)
             L = L + torch.where((nee_live & ~occluded)[:, None], beta_nee * ld, 0.0)
     return L, p_film, ray_w, cnt

@@ -41,6 +41,8 @@ def compile_lights(lights, shape_tri_range, tp):
         params[8] = -1
         scale = ps.find_one_rgb("scale", [1, 1, 1])
         if lr.kind == "area":
+            if lr.shape_index not in shape_tri_range:
+                continue   # an emitter inside an object: its baked copies carry it
             kid = L_AREA
             L = ps.find_one_rgb("L", [1, 1, 1]) * scale
             params[5] = 1.0 if ps.find_one_bool("twosided", False) else 0.0

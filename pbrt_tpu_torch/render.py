@@ -84,7 +84,7 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
     return develop(cs.film, film), {c: int(v) for c, v in totals.items()}, passes
 
 
-def render_file(path: str, options: Optional[Options] = None, device="cpu"):
+def render_file(path: str, options: Optional[Options] = None, device="cuda"):
     """Parse, render and write one scene file -> (output path, image)."""
     from pbrt_tpu_torch.io.image_io import write_image
     from pbrt_tpu_torch.scene.build import load_scene

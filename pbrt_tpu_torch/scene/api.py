@@ -1,7 +1,8 @@
 """Scene-compiler state machine: directives -> host SceneDescription (port of
-pbrt_tpu/scene/api.py). Directives the slice does not port (textures,
-media, object instancing, animated transforms) raise NotImplementedError
-naming what they met."""
+pbrt_tpu/scene/api.py). Object instances and animated shapes become shared
+prototypes behind per-instance transform pairs. Directives the port does not
+cover yet (textures, media, TransformTimes other than 0 1) raise
+NotImplementedError naming what they met."""
 from __future__ import annotations
 
 import dataclasses
@@ -88,6 +89,11 @@ class SceneDescription:
         self.integrator_params = ParamSet()
         self.accelerator_kind = "bvh"
         self.accelerator_params = ParamSet()
+        # shared-prototype instancing: prototypes hold geometry once;
+        # instances are dicts {proto, m_p2w0, m_w2p0, m_p2w1, m_w2p1 (4x4),
+        # animated} (Api.object_instance, animated shapes)
+        self.prototypes: List[List[ShapeRecord]] = []
+        self.instances: List[dict] = []
 
 
 class Api:
@@ -102,6 +108,9 @@ class Api:
         self.attr_stack: List[Tuple[GraphicsState, TransformSet]] = []
         self.xform_stack: List[TransformSet] = []
         self.cwd = "."
+        self.current_object: Optional[str] = None
+        self.objects: Dict[str, List[ShapeRecord]] = {}
+        self.proto_ids: Dict[str, int] = {}
 
     # -- transforms ------------------------------------------------------
     def _apply(self, t: Transform):
@@ -237,7 +246,7 @@ class Api:
     def area_light_source(self, kind, ps):
         self.gs.area_light = (kind, ps)
 
-    # -- media and instancing: not ported --------------------------------
+    # -- media: not ported ------------------------------------------------
     def make_named_medium(self, name, ps):
         raise NotImplementedError(f"MakeNamedMedium {name!r} is not ported")
 
@@ -246,31 +255,83 @@ class Api:
             raise NotImplementedError(
                 f"MediumInterface {inside!r} {outside!r} is not ported")
 
+    # -- instancing ------------------------------------------------------
     def object_begin(self, name):
-        raise NotImplementedError(f"ObjectBegin {name!r} (instancing) is not ported")
+        self.attribute_begin()
+        self.current_object = name
+        self.objects[name] = []
 
     def object_end(self):
-        raise NotImplementedError("ObjectEnd (instancing) is not ported")
+        self.current_object = None
+        self.attribute_end()
 
     def object_instance(self, name):
-        raise NotImplementedError(f"ObjectInstance {name!r} is not ported")
+        """Instance the named prototype under the current CTM.
+
+        Prototypes of triangle meshes without area lights share one copy of
+        their geometry behind a per-instance transform pair, which also
+        carries motion blur. Their vertices hold the full definition-time
+        CTM, and the raw instance CTM maps that space to world. Emitting
+        prototypes are baked instead (geometry duplicated per instance)."""
+        recs = self.objects.get(name, [])
+        if recs and all(r.area_light < 0 for r in recs):
+            if name not in self.proto_ids:
+                self.proto_ids[name] = len(self.scene.prototypes)
+                self.scene.prototypes.append(list(recs))
+            m0, m1 = self.ctm.t
+            self.scene.instances.append(dict(
+                proto=self.proto_ids[name],
+                m_p2w0=m0.m.copy(), m_w2p0=m0.m_inv.copy(),
+                m_p2w1=m1.m.copy(), m_w2p1=m1.m_inv.copy(),
+                animated=not np.allclose(m0.m, m1.m)))
+            return
+        self._bake_instance(name)
+
+    def _bake_instance(self, name):
+        """Geometry-duplicating fallback for prototypes with emitters."""
+        inst = self.ctm.t[0]
+        for rec in self.objects.get(name, []):
+            m = rec.mesh
+            r = dataclasses.replace(rec, mesh=dataclasses.replace(
+                m, p=np.asarray(inst.point(m.p), np.float32),
+                n=None if m.n is None else np.asarray(inst.normal(m.n), np.float32)))
+            idx = len(self.scene.shapes)
+            self.scene.shapes.append(r)
+            if r.area_light >= 0:
+                # each baked copy of an emitter gets its own light record
+                src = self.scene.lights[r.area_light]
+                r.area_light = len(self.scene.lights)
+                self.scene.lights.append(LightRecord(
+                    src.kind, src.params, inst.m @ src.l2w, src.w2l @ inst.m_inv,
+                    shape_index=idx))
 
     # -- shapes ----------------------------------------------------------
     def shape(self, kind, ps: ParamSet):
         from pbrt_tpu_torch.shapes.triangle import mesh_from_params
         if kind != "trianglemesh":
             raise NotImplementedError(f"shape {kind!r} is not ported")
-        if self.ctm.is_animated():
-            raise NotImplementedError("animated shape transforms are not ported")
         o2w = self.ctm.t[0]
         rec = ShapeRecord(kind, mesh=mesh_from_params(ps, o2w),
                           material=self.gs.material,
                           reverse_orientation=self.gs.reverse_orientation)
-        idx = len(self.scene.shapes)
         if self.gs.area_light is not None:
             akind, aps = self.gs.area_light
             rec.area_light = len(self.scene.lights)
             self.scene.lights.append(LightRecord(akind if akind != "diffuse" else "area",
-                                                 aps, o2w.m.copy(), o2w.m_inv.copy(),
-                                                 shape_index=idx))
-        self.scene.shapes.append(rec)
+                                                 aps, o2w.m.copy(), o2w.m_inv.copy()))
+        if self.current_object is not None:
+            self.objects[self.current_object].append(rec)
+        elif self.ctm.is_animated() and rec.area_light < 0:
+            # an animated shape becomes an animated single-instance
+            # prototype; its vertices hold the start transform, so the
+            # instance's motion is the change from start to end
+            self.scene.prototypes.append([rec])
+            m1 = self.ctm.t[1] * self.ctm.t[0].inverse()
+            self.scene.instances.append(dict(
+                proto=len(self.scene.prototypes) - 1,
+                m_p2w0=np.eye(4, dtype=np.float32), m_w2p0=np.eye(4, dtype=np.float32),
+                m_p2w1=m1.m.copy(), m_w2p1=m1.m_inv.copy(), animated=True))
+        else:
+            if rec.area_light >= 0:
+                self.scene.lights[rec.area_light].shape_index = len(self.scene.shapes)
+            self.scene.shapes.append(rec)

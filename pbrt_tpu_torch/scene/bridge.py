@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from pbrt_tpu_torch.accel.instance import IMAT_STRIDE, InstanceBVH, walk_stack_need
 from pbrt_tpu_torch.accel.traverse import KernelBVH, LEAF_TRIS, tree_depth
 from pbrt_tpu_torch.cameras import CameraSpec
 from pbrt_tpu_torch.film import FilmSpec
@@ -19,7 +20,7 @@ from pbrt_tpu_torch.samplers import SamplerSpec, PORTED_KINDS
 from pbrt_tpu_torch.scene.build import scene_from_tables
 
 ARRAY_KEYS = (
-    "n_tris", "n_lights", "tri_attr", "slot_attr",
+    "n_tris", "n_world_tris", "n_lights", "tri_attr", "slot_attr",
     "pbvh.metas", "pbvh.nodes", "pbvh.tris", "pbvh.order", "pbvh.seed",
     "pbvh.seed_slots", "pbvh.wlo", "pbvh.whi",
     "mats.kind", "mats.const", "mats.misc",
@@ -27,6 +28,9 @@ ARRAY_KEYS = (
     "lights.ltri_p0", "lights.ltri_p1", "lights.ltri_p2",
     "light_distr.func", "light_distr.cdf", "light_distr.func_int",
     "world_center", "world_radius")
+# the instance world's arrays: present (not None) only in scenes with instances
+IBVH_KEYS = ("metas", "nodes", "tris", "order", "imat", "iroot", "ianim", "i2w", "w2p",
+             "wlo", "whi")
 
 
 def kernel_bvh_from_pallas(metas, nodes, tris, order, seed, seed_slots, wlo, whi):
@@ -46,14 +50,31 @@ def kernel_bvh_from_pallas(metas, nodes, tris, order, seed, seed_slots, wlo, whi
                      tree_depth(right, cnts))
 
 
+def instance_bvh_from_pallas(metas, nodes, tris, order, imat, iroot, ianim, i2w, w2p,
+                             wlo, whi):
+    """The reference's InstanceBVH arrays (TPU row layout) -> InstanceBVH (CPU)."""
+    import torch
+    metas = np.asarray(metas, np.int32)
+    t = lambda a, dt: torch.as_tensor(np.array(a, dt))
+    return InstanceBVH(t(metas, np.int32),
+                       t(np.asarray(nodes, np.float32).reshape(-1, 16)[:metas.shape[0]], np.float32),
+                       t(np.asarray(tris, np.float32).reshape(-1, 16), np.float32),
+                       t(order, np.int32),
+                       t(np.asarray(imat, np.float32).reshape(-1, IMAT_STRIDE), np.float32),
+                       t(iroot, np.int32), t(ianim, np.int32), t(i2w, np.float32),
+                       t(w2p, np.float32), np.asarray(wlo, np.float32),
+                       np.asarray(whi, np.float32), walk_stack_need(metas, iroot))
+
+
 def tables_from_jax_arrays(a: dict) -> dict:
     """Reference arrays -> the port's host table dict (build.build_tables)."""
     missing = [k for k in ARRAY_KEYS if k not in a]
     if missing:
         raise KeyError(f"missing reference arrays: {missing}")
     n_tris = int(a["n_tris"])
-    t = {"n_tris": n_tris, "n_lights": int(a["n_lights"]),
-         "tri_attr": np.asarray(a["tri_attr"], np.float32)[:n_tris],
+    t = {"n_tris": n_tris, "n_world_tris": int(a["n_world_tris"]),
+         "n_lights": int(a["n_lights"]),
+         "tri_attr": np.asarray(a["tri_attr"], np.float32),
          "mat_kind": np.asarray(a["mats.kind"], np.int32),
          "mat_const": np.asarray(a["mats.const"], np.float32),
          "mat_misc": np.asarray(a["mats.misc"], np.float32),
@@ -75,10 +96,12 @@ def tables_from_jax_arrays(a: dict) -> dict:
         t["slot_attr"] = np.asarray(a["slot_attr"], np.float32)
         t["bvh"] = kernel_bvh_from_pallas(*(a[f"pbvh.{k}"] for k in (
             "metas", "nodes", "tris", "order", "seed", "seed_slots", "wlo", "whi")))
+    if a.get("ibvh.metas") is not None:
+        t["ibvh"] = instance_bvh_from_pallas(*(a[f"ibvh.{k}"] for k in IBVH_KEYS))
     return t
 
 
-def from_jax_arrays(arrays: dict, specs: dict, device="cpu"):
+def from_jax_arrays(arrays: dict, specs: dict, device="cuda"):
     """Reference arrays and specs -> the port's CompiledScene on `device`.
 
     specs: {"camera": {raster_to_camera, cam_to_world, shutter_open,

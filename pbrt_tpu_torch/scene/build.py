@@ -1,8 +1,8 @@
 """Scene flattening: SceneDescription -> CompiledScene on a device (port of
 the slice's part of pbrt_tpu/scene/build.py): the global triangle table,
-the BVH and its kernel tables, slot-keyed hit attributes, material and
-light tables, the light power distribution, and the camera, film and
-sampler specs."""
+the world BVH and its kernel tables, slot-keyed hit attributes, the
+instance world, material and light tables, the light power distribution,
+and the camera, film and sampler specs."""
 from __future__ import annotations
 
 import os
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel.bvh import build_bvh
+from pbrt_tpu_torch.accel.instance import pack_instance_world
 from pbrt_tpu_torch.accel.traverse import pack_kernel_bvh
 from pbrt_tpu_torch.cameras import make_camera
 from pbrt_tpu_torch.core.sampling import Distribution1D
@@ -28,15 +29,21 @@ _PORTED_INTEGRATOR_PARAMS = {"maxdepth", "rrthreshold"}
 
 
 def build_tables(desc: SceneDescription) -> dict:
-    """Host numpy tables of a scene description (keys as in bridge.py)."""
+    """Host numpy tables of a scene description (keys as in bridge.py).
+
+    tri_attr holds the world triangles, then each prototype's triangles
+    once, in prototype space. The world BVH covers the world rows only; the
+    instance world's prototype subtrees index the prototype rows."""
     tri_p, tri_n, tri_uv, tri_prim, tri_has_n = [], [], [], [], []
     prim_material, prim_light, prim_rev = [], [], []
-    shape_tri_range = {}
     n_tri = 0
-    for si, rec in enumerate(desc.shapes):
+
+    def add_mesh(rec, light):
+        """Append one mesh's rows -> its (first row, count)."""
+        nonlocal n_tri
         pid = len(prim_material)
         prim_material.append(rec.material)
-        prim_light.append(rec.area_light)
+        prim_light.append(light)
         m = rec.mesh
         prim_rev.append(rec.reverse_orientation ^ m.transform_swaps_handedness)
         idx = m.indices
@@ -51,47 +58,65 @@ def build_tables(desc: SceneDescription) -> dict:
         tri_uv.append(m.uv[idx] if m.uv is not None else
                       np.tile(np.array([[0, 0], [1, 0], [1, 1]], np.float32), (T, 1, 1)))
         tri_prim.append(np.full(T, pid, np.int32))
-        shape_tri_range[si] = (n_tri, T)
         n_tri += T
+        return n_tri - T, T
 
-    out = {"n_tris": n_tri}
+    shape_tri_range = {si: add_mesh(rec, rec.area_light) for si, rec in enumerate(desc.shapes)}
+    n_world = n_tri
+    proto_rows = [[add_mesh(rec, -1) for rec in precs] for precs in desc.prototypes]
+
+    out = {"n_tris": n_world, "n_world_tris": n_world}
+    tp = (np.concatenate(tri_p).astype(np.float32) if n_tri
+          else np.zeros((0, 3, 3), np.float32))
+    attr = np.zeros((n_tri, AT_K), np.float32)
     if n_tri:
-        tp = np.concatenate(tri_p).astype(np.float32)
         tn = np.concatenate(tri_n).astype(np.float32)
-        thn = np.concatenate(tri_has_n)
-        tuv = np.concatenate(tri_uv).astype(np.float32)
         tprim = np.concatenate(tri_prim)
-        lo = tp.min(axis=1)
-        hi = tp.max(axis=1)
-        eps = 1e-5 * np.maximum(np.abs(lo) + np.abs(hi), 1.0)
-        bvh = build_bvh(lo - eps, hi + eps, split_method=desc.accelerator_params
-                        .find_one_string("splitmethod", "sah"))
-        out["bvh"] = pack_kernel_bvh(bvh, tp[:, 0], tp[:, 1], tp[:, 2])
-        attr = np.zeros((n_tri, AT_K), np.float32)
         attr[:, 0:3], attr[:, 3:6], attr[:, 6:9] = tp[:, 0], tp[:, 1], tp[:, 2]
         attr[:, 9:18] = tn.reshape(n_tri, 9)
-        attr[:, 18:24] = tuv.reshape(n_tri, 6)
-        attr[:, 24] = thn
+        attr[:, 18:24] = np.concatenate(tri_uv).astype(np.float32).reshape(n_tri, 6)
+        attr[:, 24] = np.concatenate(tri_has_n)
         attr[:, 25] = tprim
         attr[:, 26] = np.asarray(prim_material, np.int32)[tprim]
         attr[:, 27] = np.asarray(prim_light, np.int32)[tprim]
         attr[:, 28] = np.asarray(prim_rev, bool)[tprim]
         attr[:, 29] = np.arange(n_tri)
         attr[:, 30:32] = -1.0
+    out["tri_attr"] = attr
+    pts = []
+    if n_world:
+        wtp = tp[:n_world]
+        lo = wtp.min(axis=1)
+        hi = wtp.max(axis=1)
+        eps = 1e-5 * np.maximum(np.abs(lo) + np.abs(hi), 1.0)
+        bvh = build_bvh(lo - eps, hi + eps, split_method=desc.accelerator_params
+                        .find_one_string("splitmethod", "sah"))
+        out["bvh"] = pack_kernel_bvh(bvh, wtp[:, 0], wtp[:, 1], wtp[:, 2])
         order = out["bvh"].order.numpy()
         slot_attr = attr[np.maximum(order, 0)].copy()
         slot_attr[order < 0] = 0.0
         slot_attr[order < 0, 29] = -1.0
         slot_attr[order < 0, 27] = -1.0
         slot_attr[order < 0, 30:32] = -1.0
-        out["tri_attr"], out["slot_attr"] = attr, slot_attr
-        allpts = np.concatenate([lo, hi])
+        out["slot_attr"] = slot_attr
+        pts += [lo, hi]
+    if desc.instances:
+        proto_tris, proto_gids = [], []
+        for rows in proto_rows:
+            first = rows[0][0]
+            last = rows[-1][0] + rows[-1][1]
+            p0, p1, p2 = tp[first:last, 0], tp[first:last, 1], tp[first:last, 2]
+            proto_tris.append((np.minimum(np.minimum(p0, p1), p2),
+                               np.maximum(np.maximum(p0, p1), p2), p0, p1, p2))
+            proto_gids.append(np.arange(first, last, dtype=np.int32))
+        out["ibvh"] = pack_instance_world(proto_tris, proto_gids, desc.instances)
+        pts += [out["ibvh"].wlo[None], out["ibvh"].whi[None]]
+    if pts:
+        allpts = np.concatenate(pts)
         wlo, whi = allpts.min(0), allpts.max(0)
         wc = 0.5 * (wlo + whi)
         wr = float(np.linalg.norm(whi - wlo) * 0.5 + 1e-6)
     else:
-        tp = np.zeros((0, 3, 3), np.float32)
-        out["tri_attr"] = np.zeros((0, AT_K), np.float32)
         wc, wr = np.zeros(3, np.float32), 1.0
     out["world_center"] = wc.astype(np.float32)
     out["world_radius"] = np.float32(wr)
@@ -139,17 +164,21 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         light_distr=Distribution1D.from_tables(t["light_func"], t["light_cdf"],
                                                t["light_func_int"], dev),
         world_center=np.asarray(t["world_center"], np.float32),
-        world_radius=float(t["world_radius"]))
+        world_radius=float(t["world_radius"]),
+        ibvh=t["ibvh"].to(dev) if "ibvh" in t else None)
     flags = SceneFlags(
         n_tris=int(t["n_tris"]), n_lights=int(t["n_lights"]),
         has_infinite=bool(np.any(kinds == L_INFINITE)),
         has_area_lights=bool(np.any(kinds == L_AREA)),
-        infinite_light_ids=tuple(int(i) for i in np.nonzero(kinds == L_INFINITE)[0]))
+        infinite_light_ids=tuple(int(i) for i in np.nonzero(kinds == L_INFINITE)[0]),
+        n_instances=int(t["ibvh"].iroot.shape[0]) if "ibvh" in t else 0,
+        n_world_tris=int(t["n_world_tris"]),
+        any_animated_inst="ibvh" in t and bool(t["ibvh"].ianim.any()))
     return CompiledScene(data, flags, camera, film, sampler, integrator_kind,
                          dict(integrator_params))
 
 
-def build_scene(desc: SceneDescription, options=None, device="cpu", seed=0) -> CompiledScene:
+def build_scene(desc: SceneDescription, options=None, device="cuda", seed=0) -> CompiledScene:
     """SceneDescription -> CompiledScene on `device`."""
     filt = make_filter(desc.filter_kind, desc.filter_params.as_plain_dict())
     film = make_film(desc.film_params.as_plain_dict(), filt, options)
@@ -162,7 +191,7 @@ def build_scene(desc: SceneDescription, options=None, device="cpu", seed=0) -> C
                              desc.integrator_params.as_plain_dict(), device)
 
 
-def load_scene(path: str, options=None, device="cpu", seed=0) -> CompiledScene:
+def load_scene(path: str, options=None, device="cuda", seed=0) -> CompiledScene:
     """Parse and build a .pbrt file."""
     api = Api()
     api.cwd = os.path.dirname(os.path.abspath(path))
@@ -170,7 +199,7 @@ def load_scene(path: str, options=None, device="cpu", seed=0) -> CompiledScene:
     return build_scene(api.scene, options, device, seed)
 
 
-def load_scene_string(text: str, options=None, device="cpu", cwd=".", seed=0) -> CompiledScene:
+def load_scene_string(text: str, options=None, device="cuda", cwd=".", seed=0) -> CompiledScene:
     api = Api()
     api.cwd = cwd
     parse_string(text, api, cwd)

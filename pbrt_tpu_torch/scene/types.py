@@ -8,6 +8,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.accel.instance import InstanceBVH
 from pbrt_tpu_torch.accel.traverse import KernelBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D
 
@@ -46,23 +47,27 @@ class LightTable:
 
 @dataclasses.dataclass
 class SceneData:
-    tri_attr: torch.Tensor              # [T, AT_K]
+    tri_attr: torch.Tensor              # [T, AT_K]: world rows, then prototype rows
     slot_attr: Optional[torch.Tensor]   # [L*8, AT_K] rows by leaf slot
-    bvh: Optional[KernelBVH]            # None when the scene has no triangles
+    bvh: Optional[KernelBVH]            # over the world rows; None without any
     mats: MaterialTable
     lights: LightTable
     light_distr: Distribution1D         # power-weighted light selection
     world_center: np.ndarray            # [3]
     world_radius: float
+    ibvh: Optional[InstanceBVH] = None  # the instance world; None without instances
 
 
 @dataclasses.dataclass(frozen=True)
 class SceneFlags:
-    n_tris: int
+    n_tris: int                  # world triangles (rows the world BVH covers)
     n_lights: int
     has_infinite: bool
     has_area_lights: bool
     infinite_light_ids: Tuple[int, ...] = ()
+    n_instances: int = 0
+    n_world_tris: int = 0        # tri_attr rows before the prototype rows
+    any_animated_inst: bool = False
 
 
 @dataclasses.dataclass

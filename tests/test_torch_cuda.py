@@ -1,4 +1,5 @@
-"""The BVH traversal kernel on the card, in a process without JAX.
+"""The BVH and instance traversal kernels on the card, in a process
+without JAX.
 
 Run on a machine with an NVIDIA GPU (`--noconftest` skips tests/conftest.py,
 which configures JAX; nothing here imports it):
@@ -11,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import needs_cuda, rays_at_knot
+from torch_port_helpers import needs_cuda, rays_at_grid, rays_at_knot
 
+from pbrt_tpu_torch.accel import instance as I
 from pbrt_tpu_torch.accel import traverse as T
 from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
-from pbrt_tpu_torch.scene.bench import build_bench_scene
+from pbrt_tpu_torch.scene.bench import build_bench_scene, build_instanced_bench_scene
 
 
 def _launch_rays(cs, dev):
@@ -83,6 +85,69 @@ def test_render_goes_through_the_kernel():
     b, _, _ = render_sampler_integrator(cs, opts)
     assert torch.equal(a, b)
     c, _, _ = render_sampler_integrator(build_bench_scene(False, "cpu", opts), opts)
+    a, c = a.cpu().numpy(), c.numpy()
+    assert np.all(np.isfinite(a)) and a.sum() > 0
+    near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
+    assert near >= 0.99 and abs(a.mean() - c.mean()) <= 0.01 * abs(c.mean())
+
+
+def _grid_rays(n, seed, dev):
+    o, d, time = (torch.as_tensor(a, device=dev) for a in rays_at_grid(n, seed))
+    return o, d, torch.full((n,), float("inf"), device=dev), time
+
+
+@pytest.mark.parametrize("animated", [False, True])
+def test_instance_kernel_matches_plain(animated):
+    """t, triangle, b1, b2, inst and iters bit-equal to the plain walk on
+    the instanced bench scene, static and animated (the slerp path), for
+    20,001 rays with times past both ends of [0, 1]; no stack overflow."""
+    needs_cuda()
+    dev = torch.device("cuda")
+    cs = build_instanced_bench_scene(animated, dev)
+    assert cs.flags.any_animated_inst == animated
+    args = (cs.data.ibvh, *_grid_rays(20_001, 33, dev), animated)
+    before = I.instance_traverse.launches
+    got = I.instance_traverse(*args)
+    torch.cuda.synchronize()
+    assert I.instance_traverse.launches == before + 1
+    want = I.instance_traverse_plain(*args)
+    assert int((got[4] >= 0).sum()) > 10_000
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not bool(torch.any(got[5] & T.OVF_BIT))
+
+
+def test_instance_wrapper_raises_instead_of_falling_back():
+    needs_cuda()
+    dev = torch.device("cuda")
+    ib = build_instanced_bench_scene(False, dev).data.ibvh
+    o, d, tm, time = _grid_rays(64, 34, dev)
+    with pytest.raises(TypeError):
+        I.instance_traverse(ib, o, d.double(), tm, time, False)
+    with pytest.raises(ValueError):
+        I.instance_traverse(ib, o, d, tm, time.cpu(), False)
+    with pytest.raises(ValueError):
+        I.instance_traverse(ib, o, d, tm, time[:32], False)
+    with pytest.raises(ValueError):
+        I.instance_traverse(ib, o, d.t().contiguous().t(), tm, time, False)
+
+
+@pytest.mark.parametrize("animated", [False, True])
+def test_instanced_render_goes_through_both_kernels(animated):
+    """A crop of an instanced bench scene: 5 launches per pass of each
+    kernel, bitwise equal over two renders, and close to the same crop
+    rendered on the CPU with the plain walks."""
+    needs_cuda()
+    opts = Options(crop_window=(0.5, 0.5625, 0.5, 0.5625))
+    cs = build_instanced_bench_scene(animated, "cuda", opts)
+    T.traverse.launches = I.instance_traverse.launches = 0
+    a, cnt, passes = render_sampler_integrator(cs, opts)
+    torch.cuda.synchronize()
+    assert T.traverse.launches == I.instance_traverse.launches == 5 * passes
+    assert cnt["camera_rays"] == 16 * 16 * 4
+    b, _, _ = render_sampler_integrator(cs, opts)
+    assert torch.equal(a, b)
+    c, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, "cpu", opts), opts)
     a, c = a.cpu().numpy(), c.numpy()
     assert np.all(np.isfinite(a)) and a.sum() > 0
     near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()

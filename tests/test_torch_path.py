@@ -30,6 +30,28 @@ WorldBegin
 LightSource "infinite" "rgb L" [0.5 0.5 0.5]
 WorldEnd
 """
+# the smoke scene seen from above, with two instances of a dark triangle and
+# an animated one in front of the environment
+INSTANCED_SMOKE = SMOKE.replace("Camera", "LookAt 0 0 5  0 0 0  0 1 0\nCamera").replace(
+    "WorldEnd", """ObjectBegin "tri"
+  Material "matte" "rgb Kd" [0.2 0.2 0.2]
+  Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 0 0  1 0 0  0 1 0]
+ObjectEnd
+AttributeBegin
+  Translate -1 0 0
+  ObjectInstance "tri"
+AttributeEnd
+AttributeBegin
+  Translate 1 0 0
+  ObjectInstance "tri"
+AttributeEnd
+AttributeBegin
+  ActiveTransform EndTime
+  Translate 0 -0.5 0
+  ActiveTransform All
+  Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 0 0]
+AttributeEnd
+WorldEnd""")
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +81,8 @@ def test_front_end_tables_equal_bridge(scenes):
             assert np.array_equal(got[k].wlo, want[k].wlo)
         else:
             assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
-    ours = build_bench_scene(large=False)
-    theirs = from_jax_arrays(arrays, specs)
+    ours = build_bench_scene(large=False, device="cpu")
+    theirs = from_jax_arrays(arrays, specs, device="cpu")
     assert np.array_equal(ours.camera.raster_to_camera, theirs.camera.raster_to_camera)
     assert np.array_equal(ours.camera.cam_to_world, theirs.camera.cam_to_world)
     assert ours.film == theirs.film and ours.sampler == theirs.sampler
@@ -71,7 +93,7 @@ def test_li_path_matches_reference(scenes):
     """1024 lanes, depth 4: >= 99% of lanes within rtol 1e-3 / atol 1e-4,
     the mean within 1%, and the same live-ray counts."""
     jcpu, arrays, specs = scenes
-    cs = from_jax_arrays(arrays, specs)
+    cs = from_jax_arrays(arrays, specs, device="cpu")
     px, py, s = lanes(1024, 64, 4, seed=4)
     L, p_film, w, cnt = li_path(cs, *(torch.as_tensor(a) for a in (px, py, s)), max_depth=4)
     jL, jp, jw, jcnt = j_li_path(jcpu, jnp.asarray(px), jnp.asarray(py), jnp.asarray(s),
@@ -88,7 +110,7 @@ def test_li_path_matches_reference(scenes):
 
 def test_render_driver_is_deterministic_and_finite():
     opts = Options(crop_window=(0.375, 0.5, 0.375, 0.5), wavefront_size=128)
-    cs = build_bench_scene(large=False, options=opts)
+    cs = build_bench_scene(large=False, device="cpu", options=opts)
     img1, cnt, passes = render_sampler_integrator(cs, opts)
     img2, _, _ = render_sampler_integrator(cs, opts)
     assert img1.shape == (8, 8, 3) and passes == 2
@@ -99,19 +121,24 @@ def test_render_driver_is_deterministic_and_finite():
 
 def test_smoke_scene_renders_without_jax(tmp_path):
     """A process with jax blocked imports the port and renders the
-    constant-environment scene: every pixel is sRGB 188."""
-    scene = tmp_path / "smoke.pbrt"
-    out = tmp_path / "smoke.png"
-    scene.write_text(SMOKE.replace("{OUT}", str(out)))
+    constant-environment scene, where every pixel is sRGB 188, and the same
+    with instances and an animated triangle, which darken some pixels."""
+    scenes, outs = [], []
+    for name, text in (("smoke", SMOKE), ("instanced", INSTANCED_SMOKE)):
+        scenes.append(tmp_path / f"{name}.pbrt")
+        outs.append(tmp_path / f"{name}.png")
+        scenes[-1].write_text(text.replace("{OUT}", str(outs[-1])))
     code = ("import sys; sys.modules['jax'] = None; sys.modules['pbrt_tpu'] = None\n"
             "from pbrt_tpu_torch.__main__ import main\n"
-            f"sys.exit(main(['--device', 'cpu', '--quiet', {str(scene)!r}]))\n")
+            f"sys.exit(main(['--device', 'cpu', '--quiet', *{[str(p) for p in scenes]!r}]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    img = read_png(str(out))
+    img = read_png(str(outs[0]))
     assert img.shape == (8, 8, 3) and np.all(img == 188)
+    img = read_png(str(outs[1]))
+    assert img.shape == (8, 8, 3) and (img == 188).any() and (img < 120).sum() >= 3 * 6
 
 
 def test_png_round_trip(tmp_path):
@@ -128,13 +155,13 @@ def test_png_round_trip(tmp_path):
      "material 'glass'"),
     ('LightSource "point"', "light 'point'"),
     ('Texture "t" "color" "checkerboard"', "Texture 't'"),
-    ('ObjectBegin "o"', "ObjectBegin 'o'"),
+    ('LightSource "spot"', "light 'spot'"),
     ('MakeNamedMedium "m" "string type" "homogeneous"', "MakeNamedMedium 'm'"),
 ])
 def test_unported_directives_raise(directive, what):
     text = SMOKE.replace("{OUT}", "x.png").replace("WorldEnd", directive + "\nWorldEnd")
     with pytest.raises(NotImplementedError, match=what):
-        load_scene_string(text)
+        load_scene_string(text, device="cpu")
 
 
 @pytest.mark.parametrize("line,what", [
@@ -146,4 +173,4 @@ def test_unported_directives_raise(directive, what):
 def test_unported_options_raise(line, what):
     text = SMOKE.replace("{OUT}", "x.png").replace("WorldBegin", line + "\nWorldBegin")
     with pytest.raises(NotImplementedError, match=what):
-        load_scene_string(text)
+        load_scene_string(text, device="cpu")

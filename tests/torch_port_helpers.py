@@ -49,11 +49,15 @@ def jax_scene_arrays(cs):
     """pbrt_tpu CompiledScene -> (arrays, specs) for bridge.from_jax_arrays."""
     d = cs.data
     a = lambda x: None if x is None else np.asarray(x)
-    arrays = {"n_tris": cs.flags.n_tris, "n_lights": cs.flags.n_lights,
+    arrays = {"n_tris": cs.flags.n_tris, "n_world_tris": cs.flags.n_world_tris,
+              "n_lights": cs.flags.n_lights,
               "tri_attr": a(d.tri_attr), "slot_attr": a(d.slot_attr),
               "world_center": a(d.world_center), "world_radius": a(d.world_radius)}
     for k in ("metas", "nodes", "tris", "order", "seed", "seed_slots", "wlo", "whi"):
         arrays[f"pbvh.{k}"] = None if d.pbvh is None else a(getattr(d.pbvh, k))
+    for k in ("metas", "nodes", "tris", "order", "imat", "iroot", "ianim", "i2w", "w2p",
+              "wlo", "whi"):
+        arrays[f"ibvh.{k}"] = None if d.ibvh is None else a(getattr(d.ibvh, k))
     for k in ("kind", "const", "misc"):
         arrays[f"mats.{k}"] = a(getattr(d.mats, k))
     for k in ("kind", "L", "params", "tri_cdf", "ltri_p0", "ltri_p1", "ltri_p2"):
@@ -97,6 +101,19 @@ def rays_at_knot(n, seed=0):
     d[::11, 1] = 0.0
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def rays_at_grid(n, seed=0):
+    """Rays from a shell of radius 12 around the instanced bench scene's
+    grid toward points inside it, with times in [-0.25, 1.25)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = 12.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    o[:, 1] = np.abs(o[:, 1])
+    d = rng.uniform([-6.0, -1.0, -6.0], [6.0, 1.2, 6.0], (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    time = rng.uniform(-0.25, 1.25, n)
+    return o.astype(np.float32), d.astype(np.float32), time.astype(np.float32)
 
 
 def needs_cuda():
