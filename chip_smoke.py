@@ -34,11 +34,29 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      launches per pass of each kernel; one more render under
      torch.profiler for the device's busy time; a 32x32 crop bitwise equal
      over two renders and close to the same crop rendered on the CPU with
-     the plain walks.
+     the plain walks;
+  8. build the PLY bench scene (the 100,352-triangle knot read from a PLY
+     file; its tree has more than 32,768 nodes, where the reference runs
+     its B5 kernel) and hold the "packet" kernel (B4/B5) against its plain
+     walk at the main path's shapes (131,072 camera rays, a 262,144-ray
+     pair launch with an any-hit half, 100,003 random rays): t, slot, b1,
+     b2 and iters bit-equal on closest-hit rays, equal hit flags on any-hit
+     rays, no overflow, and b1/b2 bit-equal to kernel_bary on the hits;
+     time it beside B1 on the same tables and rays;
+  9. hold the "all" kernel (B2) on the PLY knot and the 4-wide kernel (B3)
+     on both bench knots and the PLY knot against their plain walks the
+     same way, and B3 against B1: equal hit masks, t bit-equal on >= 99.99%
+     of hits, slot equal except on exact-t ties (rays that differ are
+     printed); time both beside B1;
+  10. render the PLY bench scene end to end three times after a warm-up and
+     its loopsubdiv variant once: finite and nonzero, 5 "packet" launches
+     per pass and no B1 launch; one render under torch.profiler; a 32x32
+     crop bitwise equal over two renders and close to the CPU crop.
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
-launch. The last line is {"ok": true, "device": {...}}.
+launch (the 4-wide walk counts 4 box tests per interior pop). The last line
+is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -56,10 +74,18 @@ from pbrt_tpu_torch.accel import traverse as T
 from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
 from pbrt_tpu_torch.samplers import sample_dim
-from pbrt_tpu_torch.scene.bench import build_bench_scene, build_instanced_bench_scene
+from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench_scene,
+                                        build_ply_bench_scene)
+from pbrt_tpu_torch.scene.intersect import kernel_bary
 
 REPLACES = {"bvh_traverse": "pbrt_tpu/accel/pallas_traverse.py:1001",
+            "bvh_traverse_all": "pbrt_tpu/accel/pallas_traverse.py:698",
+            "bvh4_traverse": "pbrt_tpu/accel/pallas_traverse.py:1330",
+            "bvh_traverse_block": "pbrt_tpu/accel/pallas_traverse.py:512",
+            "bvh_traverse_packet": "pbrt_tpu/accel/pallas_traverse.py:257",
             "instance_traverse": "pbrt_tpu/accel/pallas_instance.py:352"}
+SOURCES = {"bvh4_traverse": "pbrt_tpu_torch/csrc/bvh4_traverse.cu",
+           "instance_traverse": "pbrt_tpu_torch/csrc/instance_traverse.cu"}
 PEAK_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # fp32 operations per step, counted from the kernels' sources (each add, sub,
@@ -89,27 +115,106 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def compare(kb, o, d, t_max, anyhit, counts=None):
-    """Kernel vs plain on one launch -> max |dt| over closest hits."""
-    before = T.traverse.launches
-    t, s, it = T.traverse(kb, o, d, t_max, anyhit)
+def zero_counts():
+    """Set every kernel's launch count to 0."""
+    T.traverse.launches = T.traverse4.launches = I.instance_traverse.launches = 0
+    T.traverse.bary_launches = dict.fromkeys(T.traverse.bary_launches, 0)
+
+
+def read_counts():
+    """-> {kernel name: launches since zero_counts()}."""
+    return {"bvh_traverse": T.traverse.launches, "bvh4_traverse": T.traverse4.launches,
+            "instance_traverse": I.instance_traverse.launches,
+            **{f"bvh_traverse_{v}": c for v, c in T.traverse.bary_launches.items()}}
+
+
+def kernel_and_plain(name, kb):
+    """(launch, plain walk, launch count) of a BVH kernel on tables kb: the
+    2-wide ones by name, "bvh4_traverse" on a KernelBVH4."""
+    if name == "bvh4_traverse":
+        return (lambda *r: T.traverse4(kb, *r), lambda *r: T.traverse4_plain(kb, *r),
+                lambda: T.traverse4.launches)
+    variant = name[len("bvh_traverse_"):] or "queue"
+    return (lambda *r: T.traverse(kb, *r, variant=variant),
+            lambda *r: T.traverse_plain(kb, r[0], r[1], r[2], r[3], r[4], variant),
+            lambda: read_counts()[name])
+
+
+def compare(kb, o, d, t_max, anyhit, counts=None, name="bvh_traverse"):
+    """Kernel vs plain on one launch -> max |dt| over closest hits. t and
+    slot (and b1/b2, where the kernel returns them) bit-equal on closest-hit
+    rays, equal any-hit flags, equal iters and no overflow; b1/b2 also
+    bit-equal to kernel_bary on the closest hits."""
+    launch, plain, launches = kernel_and_plain(name, kb)
+    before = launches()
+    got = launch(o, d, t_max, anyhit)
     torch.cuda.synchronize()
-    if T.traverse.launches != before + 1:
-        raise AssertionError("the kernel's launch counter did not advance")
-    tp, sp, itp = T.traverse_plain(kb, o, d, t_max, anyhit, counts)
+    if launches() != before + 1:
+        raise AssertionError(f"the {name} launch counter did not advance")
+    want = plain(o, d, t_max, anyhit, counts)
     cl = anyhit == 0
-    if not (torch.equal(t[cl], tp[cl]) and torch.equal(s[cl], sp[cl])):
-        raise AssertionError("kernel and plain walk differ on closest-hit rays")
-    if not torch.equal(s[~cl] >= 0, sp[~cl] >= 0):
-        raise AssertionError("kernel and plain walk differ in any-hit flags")
-    if not torch.equal(it, itp) or bool(torch.any(it & T.OVF_BIT)):
-        raise AssertionError(f"iters differ or a stack overflowed: {int(it.max())}")
+    for a, b in zip(got[:-1], want[:-1]):
+        if not torch.equal(a[cl], b[cl]):
+            raise AssertionError(f"{name} and its plain walk differ on closest-hit rays")
+    t, s, it = got[0], got[1], got[-1]
+    if not torch.equal(s[~cl] >= 0, want[1][~cl] >= 0):
+        raise AssertionError(f"{name} and its plain walk differ in any-hit flags")
+    if not torch.equal(it, want[-1]) or bool(torch.any(it & T.OVF_BIT)):
+        raise AssertionError(f"{name}: iters differ or a stack overflowed: {int(it.max())}")
     hit = cl & (s >= 0)
     if not bool(hit.any()):
         raise AssertionError("no closest-hit ray hit anything")
+    if len(got) == 5:
+        tris = (kb.kb if name == "bvh4_traverse" else kb).tris
+        rows = tris[s[hit].long()]
+        b1, b2 = kernel_bary(o[hit], d[hit], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+        if not (torch.equal(b1, got[2][hit]) and torch.equal(b2, got[3][hit])):
+            raise AssertionError(f"{name}: b1/b2 differ from kernel_bary")
     # equal values count 0, so a hit at t = inf (a subnormal det) is no NaN
-    a, b = t[hit], tp[hit]
+    a, b = t[hit], want[0][hit]
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
+def compare_with_b1(kb4, kb, rays, label):
+    """B3 against B1 on one launch: equal hit masks, t bit-equal on >=
+    99.99% of closest hits, slot equal except on exact-t ties; prints every
+    ray that differs."""
+    t4, s4 = T.traverse4(kb4, *rays)[:2]
+    t1, s1, _ = T.traverse(kb, *rays)
+    cl = rays[3] == 0
+    if not torch.equal(s4 >= 0, s1 >= 0):
+        raise AssertionError(f"B3 and B1 hit masks differ ({label})")
+    hit = cl & (s1 >= 0)
+    t_same = t4 == t1
+    diff = torch.nonzero(hit & (~t_same | (s4 != s1))).squeeze(1)
+    for i in diff.tolist()[:20]:
+        print(f"  B3 vs B1 ({label}) ray {i}: t {float(t4[i])!r} / {float(t1[i])!r}, "
+              f"slot {int(s4[i])} / {int(s1[i])}")
+    frac = float(t_same[hit].float().mean())
+    ties = int((hit & t_same & (s4 != s1)).sum())
+    print(f"B3 vs B1 ({label}, {rays[0].shape[0]} rays): equal hit masks, t bit-equal on "
+          f"{frac:.6f} of {int(hit.sum())} closest hits, {ties} exact-t ties with another slot, "
+          f"{len(diff)} rays differ")
+    if frac < 0.9999:
+        raise AssertionError(f"B3 and B1 t differ on more than 0.01% of hits ({label})")
+
+
+def time_kernels(names_tables, rays, label, card, plain_name=None):
+    """CUDA-event times of kernels on one launch, in turns (each twice,
+    the minimum), and of one plain walk -> {name: ms}."""
+    out = {}
+    for name, tables in names_tables:
+        launch = kernel_and_plain(name, tables)[0]
+        out[name] = cuda_ms(lambda: launch(*rays), 20)
+    for name, tables in names_tables:
+        launch = kernel_and_plain(name, tables)[0]
+        out[name] = min(out[name], cuda_ms(lambda: launch(*rays), 20))
+    if plain_name is not None:
+        plain = kernel_and_plain(plain_name, dict(names_tables)[plain_name])[1]
+        out["plain"] = cuda_ms(lambda: plain(*rays, None), 1, warm=False)
+    print(f"{label}, {rays[0].shape[0]} rays: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()) + f"  [{card}]")
+    return out
 
 
 def random_rays(n, dev, seed):
@@ -188,12 +293,14 @@ def bound_ms(counts, n, ray_bytes, inst_bytes=0, enter_ops=0, fixed_bytes=0):
     """The least time of a launch on n rays: the larger of its fp32
     operations over the card's peak and the bytes it must move (rays in,
     results out, each table entry it touched read once) over its memory
-    rate -> (ms, "operations" or "bytes")."""
+    rate -> (ms, "operations" or "bytes"). counts says how many boxes an
+    interior pop tests and how many bytes an interior entry holds."""
     n_seen = int(counts.seen.sum())
     interior, leaf_tris, inst_leaves = counts.touched()
-    ops = (n * OPS["setup"] + counts.interior * 2 * OPS["box"] + counts.tri_tests * OPS["tri"]
+    ops = (n * OPS["setup"] + counts.interior * counts.boxes * OPS["box"]
+           + counts.tri_tests * OPS["tri"]
            + counts.enters * (enter_ops + OPS["xform"] + 2 * OPS["setup"]))
-    byts = (n * ray_bytes + -(-n // T.GROUP) * 4 + n_seen * 4 + interior * 48
+    byts = (n * ray_bytes + -(-n // T.GROUP) * 4 + n_seen * 4 + interior * counts.node_bytes
             + leaf_tris * 36 + inst_leaves * inst_bytes + fixed_bytes)
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -231,19 +338,15 @@ def render_instanced(animated, dev, card):
     opts = Options()
     walls = []
     for _ in range(3):   # the host clock is noisy: three renders, the median
-        T.traverse.launches = I.instance_traverse.launches = 0
+        zero_counts()
         t0 = time.time()
         img, cnt, passes = render_sampler_integrator(cs, opts)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
-        launches = (T.traverse.launches, I.instance_traverse.launches)
-        if tuple(img.shape) != (256, 256, 3) or not bool(torch.isfinite(img).all()):
-            raise AssertionError(f"{label} instanced render is not a finite 256x256 image")
-        if float(img.sum()) <= 0:
-            raise AssertionError(f"{label} instanced render is black")
-        if launches != (5 * passes, 5 * passes):
-            raise AssertionError(f"{launches} (BVH, instance) kernel launches, expected 5 "
-                                 f"per pass x {passes} each")
+        counts = read_counts()
+        launches = (counts["bvh_traverse"], counts["instance_traverse"])
+        check_render(img, counts, {"bvh_traverse": 5 * passes,
+                                   "instance_traverse": 5 * passes}, f"{label} instanced")
     wall = sorted(walls)[1]
     samples = 256 * 256 * cs.sampler.rounded_spp()
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
@@ -258,9 +361,28 @@ def render_instanced(animated, dev, card):
           f"instance kernel {inst_ms:.2f} ms; top device ops (ms): {top}  [{card}]")
 
     b, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, dev, crop), crop)
+    c, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, "cpu", crop), crop)
+    check_crop(a, b, c, label)
+    return launches[1]
+
+
+def check_render(img, launches, want, label):
+    """A bench render: a finite, nonzero 256x256 image, and kernel launches
+    as in want ({kernel: count}; every other kernel none)."""
+    if tuple(img.shape) != (256, 256, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label} render is not a finite 256x256 image")
+    if float(img.sum()) <= 0:
+        raise AssertionError(f"{label} render is black")
+    want = {**dict.fromkeys(launches, 0), **want}
+    if launches != want:
+        raise AssertionError(f"{label} render launches {launches}, expected {want}")
+
+
+def check_crop(a, b, c, label):
+    """A 32x32 crop: bitwise equal over two card renders (a, b) and within
+    rtol 1e-3 / atol 1e-4 of the CPU render (c) on >= 99% of pixels."""
     if tuple(a.shape) != (32, 32, 3) or not torch.equal(a, b):
         raise AssertionError(f"the {label} 32x32 crop differs between two renders")
-    c, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, "cpu", crop), crop)
     a, c = a.cpu().numpy(), c.numpy()
     near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
     if near < 0.99 or abs(a.mean() - c.mean()) > 0.01 * abs(c.mean()):
@@ -269,7 +391,6 @@ def render_instanced(animated, dev, card):
     print(f"{label} 32x32 crop: bitwise equal over two CUDA renders; {near:.4f} of pixels "
           f"within rtol 1e-3 / atol 1e-4 of the CPU render, means {a.mean():.6f} / "
           f"{c.mean():.6f}")
-    return launches[1]
 
 
 def main():
@@ -282,7 +403,8 @@ def main():
           torch.cuda.get_device_name(0))
 
     # ---- 2: build ----
-    for name, sec in native.load_all(["bvh_traverse", "instance_traverse"]).items():
+    for name, sec in native.load_all(["bvh_traverse", "bvh4_traverse",
+                                      "instance_traverse"]).items():
         print(f"build: {name}.cu in {sec:.2f} s")
 
     # ---- 3: kernel vs plain at the main path's shapes ----
@@ -344,18 +466,13 @@ def main():
     opts = Options()
     render_sampler_integrator(small, opts)  # warm-up
     torch.cuda.synchronize()
-    T.traverse.launches = 0
+    zero_counts()
     t0 = time.time()
     img, cnt, passes = render_sampler_integrator(cs, opts)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = T.traverse.launches
-    if tuple(img.shape) != (256, 256, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("large render is not a finite 256x256 image")
-    if float(img.sum()) <= 0:
-        raise AssertionError("large render is black")
-    if launches != 5 * passes:
-        raise AssertionError(f"{launches} kernel launches, expected 5 per pass x {passes}")
+    launches = read_counts()["bvh_traverse"]
+    check_render(img, read_counts(), {"bvh_traverse": 5 * passes}, "large")
     samples = 256 * 256 * cs.sampler.rounded_spp()
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
     print(f"large render: {wall:.3f} s, {passes} passes, {launches} kernel launches, "
@@ -369,16 +486,8 @@ def main():
     crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
     a, _, _ = render_sampler_integrator(build_bench_scene(True, dev, crop), crop)
     b, _, _ = render_sampler_integrator(build_bench_scene(True, dev, crop), crop)
-    if tuple(a.shape) != (32, 32, 3) or not torch.equal(a, b):
-        raise AssertionError("the 32x32 crop differs between two renders")
     c, _, _ = render_sampler_integrator(build_bench_scene(True, "cpu", crop), crop)
-    a, c = a.cpu().numpy(), c.numpy()
-    near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
-    if near < 0.99 or abs(a.mean() - c.mean()) > 0.01 * abs(c.mean()):
-        raise AssertionError(f"CUDA crop vs CPU crop: {near:.4f} of pixels close, "
-                             f"means {a.mean()} / {c.mean()}")
-    print(f"32x32 crop: bitwise equal over two CUDA renders; {near:.4f} of pixels within "
-          f"rtol 1e-3 / atol 1e-4 of the CPU render, means {a.mean():.6f} / {c.mean():.6f}")
+    check_crop(a, b, c, "large")
 
     # ---- 6: the instance kernel vs its plain walk on the instanced scenes ----
     inst_err, inst_timing, inst_counts = 0.0, {}, None
@@ -414,26 +523,154 @@ def main():
     # ---- 7: both instanced scenes, end to end ----
     inst_launches = sum(render_instanced(animated, dev, card) for animated in (False, True))
 
+    # ---- 8: the PLY bench scene's tree through the "packet" kernel (B4/B5) ----
+    ply_dir = tempfile.TemporaryDirectory(prefix="ply_bench_")
+    t0 = time.time()
+    cs_p = build_ply_bench_scene(ply_dir.name, dev)
+    kbp = cs_p.data.bvh
+    print(f"PLY bench scene built in {time.time() - t0:.2f} s: {cs_p.flags.n_tris} triangles, "
+          f"{kbp.metas.shape[0]} nodes, {kbp.tris.shape[0] // T.LEAF_TRIS} leaves, depth "
+          f"{kbp.max_depth}, {T.tpu_table_bytes(kbp) / 2 ** 20:.3f} MiB of reference kernel "
+          f"tables")
+    o_p, d_p, _, _ = camera_rays(cs_p, px, py, sidx)
+    cam_p = [o_p.contiguous(), (d_p / d_p.norm(dim=1, keepdim=True)).contiguous(), cam[2], cam[3]]
+    counts = {n: T.WalkCounts(kbp.metas) for n in ("bvh_traverse_packet", "bvh_traverse_all")}
+    errs = {"bvh_traverse_packet": max(
+        compare(kbp, *cam_p, name="bvh_traverse_packet"),
+        compare(kbp, *pair, counts["bvh_traverse_packet"], name="bvh_traverse_packet"),
+        compare(kbp, *odd, name="bvh_traverse_packet"))}
+    errs["bvh_traverse_block"] = compare(kbp, *pair, name="bvh_traverse_block")
+    ply_b1_counts = T.WalkCounts(kbp.metas)
+    compare(kbp, *pair, ply_b1_counts)
+    print(f"packet kernel vs plain on the PLY tree: bit-equal in t, slot, b1, b2 and iters, "
+          f"b1/b2 equal to kernel_bary, max |dt| {errs['bvh_traverse_packet']}")
+    p_time = {}
+    for label, rays in (("camera", cam_p), ("pair", pair)):
+        p_time[label] = time_kernels(
+            [("bvh_traverse_packet", kbp), ("bvh_traverse_block", kbp), ("bvh_traverse", kbp)],
+            rays, f"PLY tree {label} launch", card, plain_name="bvh_traverse_packet")
+
+    # ---- 9: B2 on the PLY tree, B3 on both bench knots and the PLY tree ----
+    errs["bvh_traverse_all"] = max(
+        compare(kbp, *cam_p, name="bvh_traverse_all"),
+        compare(kbp, *pair, counts["bvh_traverse_all"], name="bvh_traverse_all"),
+        compare(kbp, *odd, name="bvh_traverse_all"))
+    kb4s = {"small": T.pack_kernel_bvh4(small.data.bvh), "large": T.pack_kernel_bvh4(kb),
+            "PLY": T.pack_kernel_bvh4(kbp)}
+    for label, k4 in kb4s.items():
+        print(f"BVH4 of the {label} tree: {k4.axs4.shape[0]} nodes, stack need "
+              f"{k4.stack_need} of {T.STACK4}")
+    counts["bvh4_traverse"] = T.WalkCounts.for_bvh4(kb4s["PLY"])
+    errs["bvh4_traverse"] = max(
+        compare(kb4s["small"], *odd, name="bvh4_traverse"),
+        compare(kb4s["large"], *pair, name="bvh4_traverse"),
+        compare(kb4s["large"], *odd, name="bvh4_traverse"),
+        compare(kb4s["PLY"], *pair, counts["bvh4_traverse"], name="bvh4_traverse"))
+    print(f"all and BVH4 kernels vs plain: bit-equal in t, slot, b1, b2 and iters, b1/b2 equal "
+          f"to kernel_bary, max |dt| {max(errs['bvh_traverse_all'], errs['bvh4_traverse'])}")
+    compare_with_b1(kb4s["small"], small.data.bvh, odd, "small knot, random rays")
+    compare_with_b1(kb4s["large"], kb, cam, "large knot, camera rays")
+    compare_with_b1(kb4s["large"], kb, pair, "large knot, pair launch")
+    compare_with_b1(kb4s["PLY"], kbp, pair, "PLY knot, pair launch")
+    for label, rays in (("camera", cam_p), ("pair", pair)):
+        p_time[label].update(time_kernels(
+            [("bvh_traverse_all", kbp), ("bvh4_traverse", kb4s["PLY"]), ("bvh_traverse", kbp)],
+            rays, f"PLY tree {label} launch", card))
+        p_time[label]["plain4"] = cuda_ms(lambda: T.traverse4_plain(kb4s["PLY"], *rays), 1,
+                                          warm=False)
+        p_time[label]["plain_all"] = cuda_ms(
+            lambda: T.traverse_plain(kbp, *rays, variant="all"), 1, warm=False)
+    for label, rays in (("camera", cam), ("pair", pair)):
+        time_kernels([("bvh4_traverse", kb4s["large"]), ("bvh_traverse_all", kb),
+                      ("bvh_traverse", kb)], rays, f"large knot {label} launch", card)
+
+    # ---- 10: the PLY bench scene and its loopsubdiv variant, end to end ----
+    crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
+    a, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, dev, options=crop),
+                                        crop)
+    torch.cuda.synchronize()   # the crop render is the warm-up
+    walls = []
+    for _ in range(3):
+        zero_counts()
+        t0 = time.time()
+        img, cnt, passes = render_sampler_integrator(cs_p, opts)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        ply_launches = read_counts()
+        check_render(img, ply_launches, {"bvh_traverse_packet": 5 * passes}, "PLY")
+    wall = sorted(walls)[1]
+    live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
+    print(f"PLY render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; {passes} "
+          f"passes, {ply_launches['bvh_traverse_packet']} packet and "
+          f"{ply_launches['bvh_traverse']} B1 launches each; "
+          f"{256 * 256 * cs_p.sampler.rounded_spp() / wall:.0f} samples/s, "
+          f"{live / wall / 1e6:.3f} M live rays/s ({live} live rays), mean "
+          f"{float(img.mean()):.5f}  [{card}]")
+    busy, n_kern, top, _ = profile_render(cs_p, opts)
+    print(f"PLY render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device time, "
+          f"{100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; top device ops (ms): {top}  "
+          f"[{card}]")
+    b, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, dev, options=crop),
+                                        crop)
+    c, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, "cpu", options=crop),
+                                        crop)
+    check_crop(a, b, c, "PLY")
+    t0 = time.time()
+    cs_l = build_ply_bench_scene(ply_dir.name, dev, loopsubdiv=True)
+    print(f"loopsubdiv scene built in {time.time() - t0:.2f} s: {cs_l.flags.n_tris} triangles, "
+          f"{cs_l.data.bvh.metas.shape[0]} nodes, "
+          f"{T.tpu_table_bytes(cs_l.data.bvh) / 2 ** 20:.3f} MiB of reference kernel tables")
+    zero_counts()
+    t0 = time.time()
+    img, cnt, passes = render_sampler_integrator(cs_l, opts)
+    torch.cuda.synchronize()
+    wall_l = time.time() - t0
+    check_render(img, read_counts(), {"bvh_traverse_packet": 5 * passes}, "loopsubdiv")
+    print(f"loopsubdiv render: {wall_l:.3f} s, {passes} passes, mean {float(img.mean()):.5f}  "
+          f"[{card}]")
+    ply_dir.cleanup()
+
+    n_pair = pair[0].shape[0]
+    print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
+        f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "
+        f"box tests, {c.tri_tests / n_pair:.2f} triangle tests"
+        for name, c in (("bvh_traverse", ply_b1_counts), *counts.items())))
+
     # rays in (o, d, t_max, anyhit) and out (t, slot); the occluder seed
-    b1_bound = bound_ms(pair_counts, pair[0].shape[0], 24 + 4 + 1 + 8,
-                        fixed_bytes=T.LEAF_TRIS * 36 + 9 * 4)
+    seed_bytes = T.LEAF_TRIS * 36 + 9 * 4
+    bounds = {"bvh_traverse": bound_ms(pair_counts, pair[0].shape[0], 24 + 4 + 1 + 8,
+                                       fixed_bytes=seed_bytes)}
+    # the same plus b1/b2 out; the packet walk has no seed
+    for name in ("bvh_traverse_packet", "bvh_traverse_all", "bvh4_traverse"):
+        bounds[name] = bound_ms(counts[name], pair[0].shape[0], 24 + 4 + 1 + 16,
+                                fixed_bytes=0 if name == "bvh_traverse_packet" else seed_bytes)
+    bounds["bvh_traverse_block"] = bounds["bvh_traverse_packet"]
     # rays in (o, d, t_max, time) and out (t, slot, b1, b2, inst); per
     # instance entered its 24 static matrix floats and its root
-    b6_bound = bound_ms(inst_counts, 2 * n_cam, 24 + 4 + 4 + 20, 24 * 4 + 4, OPS["lerp"])
-    print(f"bounds: bvh_traverse pair launch {b1_bound[0]:.5f} ms ({b1_bound[1]}), "
-          f"instance_traverse static shell launch {b6_bound[0]:.5f} ms ({b6_bound[1]})")
+    bounds["instance_traverse"] = bound_ms(inst_counts, 2 * n_cam, 24 + 4 + 4 + 20, 24 * 4 + 4,
+                                           OPS["lerp"])
+    print("bounds (pair launches): " + ", ".join(f"{k} {v[0]:.5f} ms ({v[1]})"
+                                                  for k, v in bounds.items()))
+    record = {
+        "bvh_traverse": (launches, err, timings["pair"][0], timings["pair"][1]),
+        "instance_traverse": (inst_launches, inst_err, inst_timing["static", "shell"][0],
+                              inst_timing["static", "shell"][1]),
+        "bvh_traverse_packet": (ply_launches["bvh_traverse_packet"], errs["bvh_traverse_packet"],
+                                p_time["pair"]["bvh_traverse_packet"], p_time["pair"]["plain"]),
+        "bvh_traverse_block": (ply_launches["bvh_traverse_block"], errs["bvh_traverse_block"],
+                               p_time["pair"]["bvh_traverse_block"], p_time["pair"]["plain"]),
+        "bvh_traverse_all": (ply_launches["bvh_traverse_all"], errs["bvh_traverse_all"],
+                             p_time["pair"]["bvh_traverse_all"], p_time["pair"]["plain_all"]),
+        "bvh4_traverse": (ply_launches["bvh4_traverse"], errs["bvh4_traverse"],
+                          p_time["pair"]["bvh4_traverse"], p_time["pair"]["plain4"]),
+    }
     print(json.dumps({"kernels": [{
-        "name": "bvh_traverse", "route": "cuda",
-        "source": "pbrt_tpu_torch/csrc/bvh_traverse.cu", "replaces": REPLACES["bvh_traverse"],
-        "launches": launches, "max_abs_err": err,
-        "ms": timings["pair"][0], "plain_ms": timings["pair"][1],
-        "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None}, {
-        "name": "instance_traverse", "route": "cuda",
-        "source": "pbrt_tpu_torch/csrc/instance_traverse.cu",
-        "replaces": REPLACES["instance_traverse"],
-        "launches": inst_launches, "max_abs_err": inst_err,
-        "ms": inst_timing["static", "shell"][0], "plain_ms": inst_timing["static", "shell"][1],
-        "bound_ms": b6_bound[0], "bound_by": b6_bound[1], "library_ms": None}]}))
+        "name": name, "route": "cuda",
+        "source": SOURCES.get(name, "pbrt_tpu_torch/csrc/bvh_traverse.cu"),
+        "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": e,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None}
+        for name, (n_launch, e, ms, plain_ms) in record.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Host BVH build (port of pbrt_tpu/accel/bvh.py).
 
-The tree comes from the reference's own C++ builder
-(pbrt_tpu/native/bvh_builder.cpp, compiled by path with g++), so the port
-walks the same tree and its leaf slots match the reference's. There is
-deliberately no numpy fallback: another builder gives another tree.
+The tree comes from csrc/bvh_builder.cpp, the port's unchanged copy of the
+reference's C++ builder (pbrt_tpu/native/bvh_builder.cpp), built with g++,
+so the port walks the same tree and its leaf slots match the reference's.
+There is deliberately no numpy fallback: another builder gives another
+tree.
 """
 from __future__ import annotations
 

@@ -22,15 +22,13 @@ tensors it launches csrc/instance_traverse.cu or raises; nothing falls back.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.accel import native
 from pbrt_tpu_torch.accel.bvh import build_bvh
-from pbrt_tpu_torch.accel.traverse import (GROUP, LEAF_TRIS, OVF_BIT, WalkCounts, _check,
+from pbrt_tpu_torch.accel.traverse import (GROUP, LEAF_TRIS, WalkCounts, _call, _check, _iters,
                                            _Rays, leaf_blocks, node_depths)
 
 STACK = 96           # per-ray stack entries, in the kernel and the plain walk
@@ -346,26 +344,6 @@ def trs_matrices_at(imat_rows, w):
 # order, so both agree bit for bit
 # ---------------------------------------------------------------------------
 
-class _IRays(_Rays):
-    """The instance walk's ray setup: its slab test subtracts the origin
-    before scaling, (lo - o) * inv, as the reference's instance kernel does."""
-
-    def slab(self, b, t_best):
-        t0x = (b[:, 0] - self.ox) * self.ix
-        t1x = (b[:, 3] - self.ox) * self.ix
-        t0y = (b[:, 1] - self.oy) * self.iy
-        t1y = (b[:, 4] - self.oy) * self.iy
-        t0z = (b[:, 2] - self.oz) * self.iz
-        t1z = (b[:, 5] - self.oz) * self.iz
-        tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
-                                         torch.minimum(t0y, t1y)),
-                           torch.minimum(t0z, t1z))
-        tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
-                                         torch.maximum(t0y, t1y)),
-                           torch.maximum(t0z, t1z)) * 1.00000024
-        return (tn <= tf) & (tf > 0.0) & (tn < t_best)
-
-
 def _xform(M, v, point: bool):
     """Rows of the 3x4 matrix M (12 lists) applied to v [n,3], left to right."""
     out = [M[4 * r] * v[:, 0] + M[4 * r + 1] * v[:, 1] + M[4 * r + 2] * v[:, 2]
@@ -437,7 +415,7 @@ def instance_traverse_plain(ib: InstanceBVH, o, d, t_max, time, trs: bool,
         fi = torch.nonzero(leaf).squeeze(1)
         if fi.numel():
             lf = lane[fi]
-            r = _IRays(cur_o[lf], cur_d[lf])
+            r = _Rays(cur_o[lf], cur_d[lf])
             blk, c = payload[fi], cnt[fi]
             tb, sl, bb1, bb2, ins = t_best[lf], slot[lf], b1[lf], b2[lf], inst[lf]
             ci = cur_inst[lf]
@@ -455,12 +433,12 @@ def instance_traverse_plain(ib: InstanceBVH, o, d, t_max, time, trs: bool,
         ii = torch.nonzero(interior).squeeze(1)
         if ii.numel():
             lni = lane[ii]
-            r = _IRays(cur_o[lni], cur_d[lni])
+            r = _Rays(cur_o[lni], cur_d[lni])
             node = raw[ii]
             rec = ib.nodes[node]
             tb = t_best[lni]
-            hl = r.slab(rec[:, 0:6], tb)
-            hr = r.slab(rec[:, 6:12], tb)
+            hl = r.slab(rec[:, 0:6], tb, mul_sub=False)
+            hr = r.slab(rec[:, 6:12], tb, mul_sub=False)
             swap = torch.gather(r.neg, 1, ax[ii, None]).squeeze(1)
             left, right = node + 1, payload[ii]
             near = torch.where(swap, right, left)
@@ -471,12 +449,7 @@ def instance_traverse_plain(ib: InstanceBVH, o, d, t_max, time, trs: bool,
             ovf[lni] |= ov1 | ov2
         sp[lane] = spl
 
-    g = -(-n // GROUP)
-    pad = g * GROUP - n
-    pmax = torch.nn.functional.pad(pops, (0, pad)).view(g, GROUP).amax(1)
-    oany = torch.nn.functional.pad(ovf, (0, pad)).view(g, GROUP).any(1)
-    iters = pmax | torch.where(oany, OVF_BIT, 0).to(torch.int32)
-    return t_best, _global_tri(ib, slot), b1, b2, inst, iters
+    return t_best, _global_tri(ib, slot), b1, b2, inst, _iters(pops, ovf)
 
 
 def _global_tri(ib: InstanceBVH, slot):
@@ -517,18 +490,9 @@ def _launch(ib: InstanceBVH, o, d, t_max, time, trs: bool):
     scratch = torch.zeros(2 * g, dtype=torch.int32, device=dev)
     if n == 0:
         return t, slot, b1, b2, inst, scratch[:0]
-    fn = native.load("instance_traverse").pbrt_instance_traverse
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ib.metas.data_ptr(), ib.nodes.data_ptr(), ib.tris.data_ptr(),
-                 ib.imat.data_ptr(), ib.iroot.data_ptr(), o.data_ptr(), d.data_ptr(),
-                 t_max.data_ptr(), time.data_ptr(), n, int(trs), t.data_ptr(),
-                 slot.data_ptr(), b1.data_ptr(), b2.data_ptr(), inst.data_ptr(),
-                 scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"instance_traverse launch failed: cudaError {err}")
+    _call("instance_traverse", "pbrt_instance_traverse",
+          [ib.metas, ib.nodes, ib.tris, ib.imat, ib.iroot, o, d, t_max, time],
+          [t, slot, b1, b2, inst, scratch], n, [int(trs)], dev)
     instance_traverse.launches += 1
     return t, _global_tri(ib, slot), b1, b2, inst, scratch[:g] | (scratch[g:] << 24)
 

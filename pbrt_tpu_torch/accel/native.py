@@ -1,5 +1,6 @@
-"""Build-at-first-use for the port's native code: the reference's C++ BVH
-builder (g++) and the CUDA kernels of csrc/ (nvcc).
+"""Build-at-first-use for the port's native code: the C++ BVH builder
+(csrc/bvh_builder.cpp, a copy of the reference's, built with g++) and the
+CUDA kernels of csrc/ (nvcc).
 
 All land in build/pbrt_tpu_torch/ beside the package and load through
 ctypes with a plain C interface. A build failure raises: there is no
@@ -17,9 +18,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO / "build" / "pbrt_tpu_torch"
-BVH_BUILDER_SRC = REPO / "pbrt_tpu" / "native" / "bvh_builder.cpp"
-CUDA_SOURCES = {name: REPO / "pbrt_tpu_torch" / "csrc" / f"{name}.cu"
-                for name in ("bvh_traverse", "instance_traverse")}
+CSRC = REPO / "pbrt_tpu_torch" / "csrc"
+BVH_BUILDER_SRC = CSRC / "bvh_builder.cpp"
+CUDA_SOURCES = {name: CSRC / f"{name}.cu"
+                for name in ("bvh_traverse", "bvh4_traverse", "instance_traverse")}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -29,9 +31,11 @@ _LIBS: dict = {}
 
 
 def _compile(cmd_head, src: Path, so: Path, timeout: float) -> None:
-    """Compile src into so unless so is newer; write to a private name and
-    rename, so concurrent processes never load a half-written library."""
-    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+    """Compile src into so unless so is newer than src and the headers of
+    csrc/; write to a private name and rename, so concurrent processes never
+    load a half-written library."""
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    if so.exists() and so.stat().st_mtime >= newest:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f".{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")

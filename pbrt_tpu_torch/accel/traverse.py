@@ -1,20 +1,35 @@
-"""BVH traversal: kernel tables, the plain PyTorch walk, and the wrapper of
-the CUDA kernel (port of pbrt_tpu/accel/pallas_traverse.py).
+"""BVH traversal: kernel tables, the plain PyTorch walks, and the wrappers of
+the CUDA kernels (port of pbrt_tpu/accel/pallas_traverse.py).
 
-Contract (the TPU kernel `_kernel_block_queue`'s, without its layout):
+Contract (the TPU kernels', without their layout):
   inputs  rays o [N,3], d [N,3], t_max [N] f32 and a per-ray any-hit flag
-          anyhit [N] u8, plus the packed tables of `pack_kernel_bvh`;
+          anyhit [N] u8, plus the packed tables of `pack_kernel_bvh`
+          (or of `pack_kernel_bvh4` for the 4-wide walk);
   outputs t [N] f32 and slot [N] i32 (leaf slot block*8+j, -1 on a miss),
-          iters [ceil(N/1024)] i32: per 1024-ray group the largest per-ray
-          node-pop count, with bit 24 set if any ray's stack overflowed.
-For any-hit rays only `slot >= 0` is part of the contract; both versions
-stop such a ray at its first hit and report t = 0 for it.
+          the variants with barycentrics also b1, b2 [N] f32 of the hit,
+          and iters [ceil(N/1024)] i32: per 1024-ray group the largest
+          per-ray pop count, with bit 24 set if any ray's stack overflowed.
+For any-hit rays only `slot >= 0` is part of the contract; every version
+stops such a ray at its first hit and reports t = 0 for it.
 
-`traverse` takes the plain version for CPU tensors only. For CUDA tensors
-it launches csrc/bvh_traverse.cu or raises; nothing falls back.
+The TPU kernels are schedules of one walk that differ in three ways, so
+the port has one walk with three switches (VARIANTS):
+  "queue"   _kernel_block_queue (B1): slab lo*inv - o*inv, the occluder
+            seed first, (t, slot) out; b1/b2 come later from kernel_bary;
+  "all"     _kernel_block_all (B2): the same walk with b1/b2 out;
+  "block"   _kernel_block (B4) and
+  "packet"  _kernel (B5): slab (lo - o)*inv, no seed, b1/b2 out. B4 and B5
+            compute the same function; one walk and one kernel serve both.
+`traverse4` is _kernel_block4_all (B3): B2's contract over the 4-wide
+collapse of the same tree.
+
+`traverse` and `traverse4` take the plain versions for CPU tensors only.
+For CUDA tensors they launch csrc/bvh_traverse.cu or csrc/bvh4_traverse.cu
+or raise; nothing falls back.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 
@@ -24,11 +39,19 @@ import torch
 from pbrt_tpu_torch.accel import native
 
 LEAF_TRIS = 8        # triangles per leaf block: 8 x 16 floats = 512 bytes
-STACK = 64           # per-ray stack entries, in the kernel and the plain walk
+STACK = 64           # per-ray stack entries of the 2-wide walks
+STACK4 = 96          # per-ray stack entries of the 4-wide walk
 GROUP = 1024         # rays per `iters` entry
 TINY = 1e-20
 FAR_SCALE = 1.00000024   # conservative slab far factor
 OVF_BIT = 1 << 24
+LEAF_TAG = 1 << 30   # 4-wide stack word: leaf block, cnt in bits 26-29
+PAYLOAD = 0x3FFFFFF
+
+# variant -> (slab lo*inv - o*inv (else (lo - o)*inv), occluder seed, b1/b2 out)
+VARIANTS = {"queue": (True, True, False), "all": (True, True, True),
+            "block": (False, False, True), "packet": (False, False, True)}
+_BARY_IDS = {"all": 0, "block": 1, "packet": 1}   # the bary entry point's variant
 
 
 @dataclasses.dataclass
@@ -58,6 +81,31 @@ class KernelBVH:
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+@dataclasses.dataclass
+class KernelBVH4:
+    """The 4-wide collapse of a KernelBVH's tree (`_pack_bvh4`'s tables).
+
+    nodes4 [M4,24] f32  4 slot boxes (lo xyz, hi xyz), NaN for an empty slot
+    meta4 [4*M4] i32    per slot the word its push puts on the stack: an
+                        interior BVH4 node id, or LEAF_TAG | cnt<<26 | block
+                        for a leaf; 0 for an empty slot (node 0 is the root)
+    axs4 [M4] i32       a0 | a1<<2 | a2<<4: the split axes of the grouping
+                        node and of its left and right children
+    kb                  the 2-wide tables it was made from: leaf blocks, order
+                        and seed
+    stack_need          the most stack entries the walk can hold
+    """
+    nodes4: torch.Tensor
+    meta4: torch.Tensor
+    axs4: torch.Tensor
+    kb: KernelBVH
+    stack_need: int
+
+    def to(self, device) -> "KernelBVH4":
+        return KernelBVH4(self.nodes4.to(device), self.meta4.to(device), self.axs4.to(device),
+                          self.kb.to(device), self.stack_need)
 
 
 def node_depths(right: np.ndarray, cnts: np.ndarray) -> np.ndarray:
@@ -155,6 +203,74 @@ def pack_kernel_bvh(bvh, tri_p0, tri_p1, tri_p2, device="cpu") -> KernelBVH:
                      wlo.astype(np.float32), whi.astype(np.float32), depth)
 
 
+def pack_kernel_bvh4(kb: KernelBVH) -> KernelBVH4:
+    """Collapse the 2-wide tree of kb into 4-wide nodes: the reference's
+    `_pack_bvh4`, same boxes, words and axes, without its TPU SMEM cap.
+    Each BVH4 node is a BVH2 interior node: a leaf child is one slot (its
+    box), an interior child gives its two children as slots and its own box
+    is never tested. Nodes are numbered breadth first from the root. Raises
+    if the root is a leaf or the walk could need more than the kernel's
+    STACK4 entries."""
+    metas = kb.metas.cpu().numpy().astype(np.int64)
+    packed = kb.nodes.cpu().numpy()[:, :12]
+    axis, cnts, payload = metas & 3, (metas >> 2) & 15, (metas >> 6) & PAYLOAD
+    right = blockid = payload     # right child of an interior node, block of a leaf
+    if cnts[0] > 0:
+        raise ValueError("a BVH4 needs an interior root")
+    ids = {0: 0}
+    queue = collections.deque([0])
+    boxes, words, axws = [], [], []
+    pending = [0]         # stack entries below each node when it is popped
+    need = 1
+    empty = np.full(6, np.nan, np.float32)
+
+    def slot_of(g):
+        if cnts[g] > 0:
+            return LEAF_TAG | (int(min(cnts[g], LEAF_TRIS)) << 26) | int(blockid[g])
+        ids[g] = len(ids)
+        queue.append(g)
+        return ids[g]
+
+    while queue:
+        i = queue.popleft()
+        nid = ids[i]
+        sw, sb = [0, 0, 0, 0], [empty] * 4
+        a = [int(axis[i]), 0, 0]
+        for side, c in ((0, i + 1), (1, int(right[i]))):
+            if cnts[c] > 0:
+                sw[2 * side], sb[2 * side] = slot_of(c), packed[i, 6 * side:6 * side + 6]
+            else:
+                a[1 + side] = int(axis[c])
+                for s2, g in ((0, c + 1), (1, int(right[c]))):
+                    sw[2 * side + s2] = slot_of(g)
+                    sb[2 * side + s2] = packed[c, 6 * s2:6 * s2 + 6]
+        boxes.append(sb)
+        words.append(sw)
+        axws.append(a[0] | (a[1] << 2) | (a[2] << 4))
+        k = sum(w != 0 for w in sw)
+        need = max(need, pending[nid] + k)
+        # a child popped while up to k - 1 of its siblings wait below it
+        pending += [pending[nid] + k - 1] * sum(0 < w < LEAF_TAG for w in sw)
+
+    M4 = len(boxes)
+    if M4 >= (1 << 26):
+        raise ValueError("BVH4 node index exceeds the 26-bit payload")
+    if need > STACK4:
+        raise ValueError(f"the BVH4 walk needs {need} stack entries > the kernel's {STACK4}")
+    dev = kb.metas.device
+    t = lambda x, dt: torch.as_tensor(np.asarray(x, dt), device=dev)
+    return KernelBVH4(t(np.reshape(boxes, (M4, 24)), np.float32),
+                      t(np.reshape(words, -1), np.int32), t(axws, np.int32), kb, need)
+
+
+def tpu_table_bytes(kb: KernelBVH) -> int:
+    """Bytes of the reference's VMEM kernel tables for this tree (nodes in
+    rows of 8, metadata in rows of 32, leaf blocks, each row 128 lanes of
+    4 bytes): what its scene build holds to 12 MiB."""
+    M, L = kb.metas.shape[0], kb.tris.shape[0] // LEAF_TRIS
+    return (-(-M // 8) + -(-M // 32) + L) * 128 * 4
+
+
 def far_miss_rays(kb, n: int, device, *others):
     """(o, d) for rays that miss the root box of kb and of each of others
     (anything with world bounds wlo/whi): they retire dead lanes."""
@@ -167,7 +283,7 @@ def far_miss_rays(kb, n: int, device, *others):
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version: a lockstep wavefront walk with the kernel's
+# plain PyTorch versions: lockstep wavefront walks with the kernels'
 # arithmetic and order, so both agree bit for bit
 # ---------------------------------------------------------------------------
 
@@ -201,18 +317,27 @@ class _Rays:
         self.neg = torch.stack([dx < 0.0, dy < 0.0, dz < 0.0], -1)
 
     def take(self, i):
-        r = object.__new__(_Rays)
+        r = object.__new__(type(self))
         r.__dict__ = {k: v[i] for k, v in self.__dict__.items()}
         return r
 
-    def slab(self, b, t_best):
-        """b: [n,6] box (lo xyz, hi xyz) -> hit mask."""
-        t0x = b[:, 0] * self.ix - self.oxi
-        t1x = b[:, 3] * self.ix - self.oxi
-        t0y = b[:, 1] * self.iy - self.oyi
-        t1y = b[:, 4] * self.iy - self.oyi
-        t0z = b[:, 2] * self.iz - self.ozi
-        t1z = b[:, 5] * self.iz - self.ozi
+    def slab(self, b, t_best, mul_sub=True):
+        """b: [n,6] box (lo xyz, hi xyz) -> hit mask. mul_sub: the slab
+        distances as lo*inv - o*inv, else as (lo - o)*inv."""
+        if mul_sub:
+            t0x = b[:, 0] * self.ix - self.oxi
+            t1x = b[:, 3] * self.ix - self.oxi
+            t0y = b[:, 1] * self.iy - self.oyi
+            t1y = b[:, 4] * self.iy - self.oyi
+            t0z = b[:, 2] * self.iz - self.ozi
+            t1z = b[:, 5] * self.iz - self.ozi
+        else:
+            t0x = (b[:, 0] - self.ox) * self.ix
+            t1x = (b[:, 3] - self.ox) * self.ix
+            t0y = (b[:, 1] - self.oy) * self.iy
+            t1y = (b[:, 4] - self.oy) * self.iy
+            t0z = (b[:, 2] - self.oz) * self.iz
+            t1z = (b[:, 5] - self.oz) * self.iz
         tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
                                          torch.minimum(t0y, t1y)),
                            torch.minimum(t0z, t1z))
@@ -248,26 +373,59 @@ class _Rays:
         return hit, t_sc * inv_det
 
 
-def _test_tris(r, rows, slots, active, anyhit, t_best, slot):
-    """Test one triangle per lane and keep the closer hit (any-hit lanes
-    record their first hit with t = 0, which no later test can beat)."""
-    hit, t = r.tri(rows, t_best)
-    ok = hit & active
-    t_best = torch.where(ok, torch.where(anyhit, 0.0, t), t_best)
-    slot = torch.where(ok, slots, slot)
-    return t_best, slot
+class _Hits:
+    """Per-lane walk results: t_best, slot and, if tracked, b1/b2."""
+
+    def __init__(self, t_best, slot, b1=None, b2=None):
+        self.t, self.slot, self.b1, self.b2 = t_best, slot, b1, b2
+
+    def take(self, i):
+        return _Hits(*(None if v is None else v[i] for v in (self.t, self.slot, self.b1, self.b2)))
+
+    def put(self, i, h):
+        for k in ("t", "slot", "b1", "b2"):
+            if getattr(self, k) is not None:
+                getattr(self, k)[i] = getattr(h, k)
+
+    def test(self, r, rows, slots, active, anyhit):
+        """Test one triangle per lane and keep the closer hit (any-hit lanes
+        record their first hit with t = 0, which no later test can beat)."""
+        if self.b1 is None:
+            hit, t = r.tri(rows, self.t)
+            ok = hit & active
+        else:
+            hit, t, u, v = r.tri(rows, self.t, bary=True)
+            ok = hit & active
+            self.b1 = torch.where(ok, u, self.b1)
+            self.b2 = torch.where(ok, v, self.b2)
+        self.t = torch.where(ok, torch.where(anyhit, 0.0, t), self.t)
+        self.slot = torch.where(ok, slots, self.slot)
 
 
 class WalkCounts:
     """What a plain walk did, summed over its rays: interior-node pops,
     triangle tests and instance entries (each also pops one RESTORE), and
     which table entries it touched. The least work a kernel launch must do
-    on the same rays (its bound) is computed from these."""
+    on the same rays (its bound) is computed from these. metas holds one
+    word per table entry (ax | cnt<<2 | ...); boxes is the number of box
+    tests per interior pop and node_bytes the bytes of an interior entry
+    beside its word."""
 
-    def __init__(self, metas):
+    def __init__(self, metas, boxes=2, node_bytes=48):
         self.metas = metas
+        self.boxes, self.node_bytes = boxes, node_bytes
         self.seen = torch.zeros(metas.shape[0], dtype=torch.bool, device=metas.device)
         self.interior = self.tri_tests = self.enters = 0
+
+    @classmethod
+    def for_bvh4(cls, kb4: KernelBVH4) -> "WalkCounts":
+        """Counts of the 4-wide walk: entries are its M4 nodes (4 boxes of
+        24 floats, 4 slot words and an axis word each), then its leaf
+        blocks at M4 + block, as `traverse4_plain` steps them."""
+        m = kb4.kb.metas
+        leaf_words = m[((m >> 2) & 15) > 0]
+        inner = torch.zeros(kb4.axs4.shape[0], dtype=m.dtype, device=m.device)
+        return cls(torch.cat([inner, leaf_words]), boxes=4, node_bytes=96 + 16)
 
     def step(self, node, interior, leaf_cnt, enters):
         """One lockstep step: the popped table nodes, which of them are
@@ -286,93 +444,172 @@ class WalkCounts:
                 int((cnt == 15).sum()))
 
 
-def traverse_plain(kb: KernelBVH, o, d, t_max, anyhit, counts: WalkCounts = None):
-    """The kernel's walk as tensor ops: every ray pops one node per step.
-    counts, if given, adds up what the walk did (WalkCounts)."""
+def _start(kb, o, d, t_max, anyhit, counts, seed, bary):
+    """Ray setup and the occluder seed -> (rays, any-hit mask, hits)."""
     n = o.shape[0]
-    dev = o.device
     r = _Rays(o, d)
     ah = anyhit.to(torch.bool)
-    t_best = t_max.clone()
-    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
-
-    scnt = int(kb.seed_slots[8])
+    zeros = (lambda: torch.zeros(n, dtype=torch.float32, device=o.device)) if bary else \
+        (lambda: None)
+    h = _Hits(t_max.clone(), torch.full((n,), -1, dtype=torch.int32, device=o.device),
+              zeros(), zeros())
+    scnt = int(kb.seed_slots[8]) if seed else 0
     if counts is not None:
         counts.tri_tests += scnt * n
     for j in range(scnt):
-        t_best, slot = _test_tris(r, kb.seed[j].expand(n, 16),
-                                  kb.seed_slots[j].expand(n),
-                                  torch.ones_like(ah), ah, t_best, slot)
+        h.test(r, kb.seed[j].expand(n, 16), kb.seed_slots[j].expand(n), torch.ones_like(ah), ah)
+    return r, ah, h
 
-    stack = torch.zeros((n, STACK), dtype=torch.int64, device=dev)
-    sp = torch.where(ah & (slot >= 0), 0, 1).to(torch.int64)
+
+def _leaf(kb, rl, h, li, blk, cnt, ahl):
+    """The 8-triangle block test of the lanes li of the popped set."""
+    if li.numel():
+        hi = h.take(li)
+        rli = rl.take(li)
+        b, c, a = blk[li], cnt[li], ahl[li]
+        for j in range(LEAF_TRIS):
+            s = b * LEAF_TRIS + j
+            hi.test(rli, kb.tris[s], s.to(torch.int32), c > j, a)
+        h.put(li, hi)
+
+
+def _iters(pops, ovf):
+    n = pops.shape[0]
+    g = -(-n // GROUP)
+    pad = g * GROUP - n
+    pmax = torch.nn.functional.pad(pops, (0, pad)).view(g, GROUP).amax(1)
+    oany = torch.nn.functional.pad(ovf, (0, pad)).view(g, GROUP).any(1)
+    return pmax | torch.where(oany, OVF_BIT, 0).to(torch.int32)
+
+
+def _walk(kb, o, d, t_max, anyhit, counts, seed, bary, stack_size, expand):
+    """The lockstep walk shared by the 2- and 4-wide versions: every live
+    ray pops one stack word per step; expand(...) handles the interior
+    words and decode(...) splits a word. -> (hits, iters)."""
+    n = o.shape[0]
+    dev = o.device
+    r, ah, h = _start(kb, o, d, t_max, anyhit, counts, seed, bary)
+    stack = torch.zeros((n, stack_size), dtype=torch.int64, device=dev)
+    sp = torch.where(ah & (h.slot >= 0), 0, 1).to(torch.int64)
     pops = torch.zeros(n, dtype=torch.int32, device=dev)
     ovf = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def push(lanes, spl, child, hit):
+        """Push child where hit, in order -> (new stack pointers, overflow)."""
+        fits = spl < stack_size
+        put = hit & fits
+        stack[lanes[put], spl[put]] = child[put]
+        return spl + put.to(torch.int64), hit & ~fits
+
     while True:
         lane = torch.nonzero(sp > 0).squeeze(1)
         if lane.numel() == 0:
             break
         spl = sp[lane] - 1
-        idx = stack[lane, spl]
+        word = stack[lane, spl]
         pops[lane] += 1
-        w = kb.metas[idx].to(torch.int64)
-        ax, cnt, payload = w & 3, (w >> 2) & 15, (w >> 6) & 0x3FFFFFF
         rl = r.take(lane)
-        tb, sl = t_best[lane], slot[lane]
+        hl = h.take(lane)
         ahl = ah[lane]
+        spl, ov = expand(word, rl, hl, ahl, lane, spl, push)
+        ovf[lane] |= ov
+        # any-hit lanes retire at their first hit
+        spl = torch.where(ahl & (hl.slot >= 0), 0, spl)
+        h.put(lane, hl)
+        sp[lane] = spl
+    return h, _iters(pops, ovf)
 
+
+def traverse_plain(kb: KernelBVH, o, d, t_max, anyhit, counts: WalkCounts = None,
+                   variant="queue"):
+    """The 2-wide kernel's walk as tensor ops -> (t, slot, iters) for
+    "queue", (t, slot, b1, b2, iters) for the other VARIANTS. counts, if
+    given, adds up what the walk did (WalkCounts)."""
+    mul_sub, seed, bary = VARIANTS[variant]
+
+    def expand(word, rl, hl, ahl, lane, spl, push):
+        w = kb.metas[word].to(torch.int64)
+        ax, cnt, payload = w & 3, (w >> 2) & 15, (w >> 6) & PAYLOAD
         leaf = cnt > 0
         if counts is not None:
-            counts.step(idx, ~leaf, cnt, 0)
-        li = torch.nonzero(leaf).squeeze(1)
-        if li.numel():
-            rli = rl.take(li)
-            blk, c = payload[li], cnt[li]
-            tbi, sli, ahi = tb[li], sl[li], ahl[li]
-            for j in range(LEAF_TRIS):
-                s = blk * LEAF_TRIS + j
-                tbi, sli = _test_tris(rli, kb.tris[s], s.to(torch.int32),
-                                      c > j, ahi, tbi, sli)
-            tb[li], sl[li] = tbi, sli
-
+            counts.step(word, ~leaf, cnt, 0)
+        _leaf(kb, rl, hl, torch.nonzero(leaf).squeeze(1), payload, cnt, ahl)
+        ovf = torch.zeros_like(leaf)
         ii = torch.nonzero(~leaf).squeeze(1)
         if ii.numel():
             rii = rl.take(ii)
-            node = idx[ii]
+            node = word[ii]
             rec = kb.nodes[node]
-            hl = rii.slab(rec[:, 0:6], tb[ii])
-            hr = rii.slab(rec[:, 6:12], tb[ii])
+            hit_l = rii.slab(rec[:, 0:6], hl.t[ii], mul_sub)
+            hit_r = rii.slab(rec[:, 6:12], hl.t[ii], mul_sub)
             swap = torch.gather(rii.neg, 1, ax[ii, None]).squeeze(1)
             left, right = node + 1, payload[ii]
-            near = torch.where(swap, right, left)
-            far = torch.where(swap, left, right)
-            h_near = torch.where(swap, hr, hl)
-            h_far = torch.where(swap, hl, hr)
-            spi = spl[ii]
-            ovf_i = torch.zeros_like(h_far)
-            for child, h in ((far, h_far), (near, h_near)):
-                fits = spi < STACK
-                put = h & fits
-                ovf_i |= h & ~fits
-                lanes_i = lane[ii]
-                stack[lanes_i[put], spi[put]] = child[put]
-                spi = spi + put.to(torch.int64)
+            spi, ov = spl[ii], torch.zeros_like(hit_l)
+            for child, hit in ((torch.where(swap, left, right), torch.where(swap, hit_l, hit_r)),
+                               (torch.where(swap, right, left), torch.where(swap, hit_r, hit_l))):
+                spi, o1 = push(lane[ii], spi, child, hit)
+                ov |= o1
             spl[ii] = spi
-            ovf[lane[ii]] |= ovf_i
-        # any-hit lanes retire at their first hit
-        spl = torch.where(ahl & (sl >= 0), 0, spl)
-        t_best[lane], slot[lane], sp[lane] = tb, sl, spl
+            ovf[ii] = ov
+        return spl, ovf
 
-    g = -(-n // GROUP)
-    pad = g * GROUP - n
-    pmax = torch.nn.functional.pad(pops, (0, pad)).view(g, GROUP).amax(1)
-    oany = torch.nn.functional.pad(ovf, (0, pad)).view(g, GROUP).any(1)
-    iters = pmax | torch.where(oany, OVF_BIT, 0).to(torch.int32)
-    return t_best, slot, iters
+    h, iters = _walk(kb, o, d, t_max, anyhit, counts, seed, bary, STACK, expand)
+    if not bary:
+        return h.t, h.slot, iters
+    return h.t, h.slot, h.b1, h.b2, iters
+
+
+def traverse4_plain(kb4: KernelBVH4, o, d, t_max, anyhit, counts: WalkCounts = None):
+    """The 4-wide kernel's walk as tensor ops (B2's slab, seed and
+    barycentrics) -> (t, slot, b1, b2, iters). A popped interior word
+    slab-tests its 4 slots and pushes the hit ones far to near: the pair
+    order by the node's own split axis, the order inside each pair by its
+    child's axis, each by the ray's direction sign on that axis. counts, if
+    given, comes from WalkCounts.for_bvh4."""
+    kb = kb4.kb
+    M4 = kb4.axs4.shape[0]
+    words4 = kb4.meta4.view(M4, 4).to(torch.int64)
+
+    def expand(word, rl, hl, ahl, lane, spl, push):
+        leaf = (word & LEAF_TAG) != 0
+        cnt = torch.where(leaf, (word >> 26) & 15, 0)
+        blk = word & PAYLOAD
+        if counts is not None:
+            counts.step(torch.where(leaf, M4 + blk, word), ~leaf, cnt, 0)
+        _leaf(kb, rl, hl, torch.nonzero(leaf).squeeze(1), blk, cnt, ahl)
+        ovf = torch.zeros_like(leaf)
+        ii = torch.nonzero(~leaf).squeeze(1)
+        if ii.numel():
+            rii = rl.take(ii)
+            nid = word[ii]
+            rec, ws = kb4.nodes4[nid], words4[nid]
+            axw = kb4.axs4[nid].to(torch.int64)
+            tb = hl.t[ii]
+            h = [rii.slab(rec[:, 6 * j:6 * j + 6], tb) & (ws[:, j] != 0) for j in range(4)]
+            s0, s1, s2 = (torch.gather(rii.neg, 1, ((axw >> (2 * k)) & 3)[:, None]).squeeze(1)
+                          for k in range(3))
+            sel = torch.where
+            e_ln, e_lf = sel(s1, ws[:, 1], ws[:, 0]), sel(s1, ws[:, 0], ws[:, 1])
+            h_ln, h_lf = sel(s1, h[1], h[0]), sel(s1, h[0], h[1])
+            e_rn, e_rf = sel(s2, ws[:, 3], ws[:, 2]), sel(s2, ws[:, 2], ws[:, 3])
+            h_rn, h_rf = sel(s2, h[3], h[2]), sel(s2, h[2], h[3])
+            spi, ov = spl[ii], torch.zeros_like(h[0])
+            for child, hit in ((sel(s0, e_lf, e_rf), sel(s0, h_lf, h_rf)),
+                               (sel(s0, e_ln, e_rn), sel(s0, h_ln, h_rn)),
+                               (sel(s0, e_rf, e_lf), sel(s0, h_rf, h_lf)),
+                               (sel(s0, e_rn, e_ln), sel(s0, h_rn, h_ln))):
+                spi, o1 = push(lane[ii], spi, child, hit)
+                ov |= o1
+            spl[ii] = spi
+            ovf[ii] = ov
+        return spl, ovf
+
+    h, iters = _walk(kb, o, d, t_max, anyhit, counts, True, True, STACK4, expand)
+    return h.t, h.slot, h.b1, h.b2, iters
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 def _check(name, x, dtype, shape, device):
@@ -388,57 +625,118 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def _launch(kb: KernelBVH, o, d, t_max, anyhit):
+def _check_rays(kb: KernelBVH, o, d, t_max, anyhit):
+    """The checks every BVH kernel's wrapper makes before it launches."""
     n = o.shape[0]
     dev = o.device
-    M = kb.metas.shape[0]
     for name, x, dt, shp in (
             ("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
             ("t_max", t_max, torch.float32, (n,)),
             ("anyhit", anyhit, torch.uint8, (n,)),
-            ("metas", kb.metas, torch.int32, (M,)),
-            ("nodes", kb.nodes, torch.float32, (M, 16)),
+            ("metas", kb.metas, torch.int32, (kb.metas.shape[0],)),
+            ("nodes", kb.nodes, torch.float32, (kb.metas.shape[0], 16)),
             ("tris", kb.tris, torch.float32, (kb.tris.shape[0], 16)),
             ("seed", kb.seed, torch.float32, (LEAF_TRIS, 16)),
             ("seed_slots", kb.seed_slots, torch.int32, (16,))):
         _check(name, x, dt, shp, dev)
     if kb.tris.shape[0] % LEAF_TRIS:
         raise ValueError("tris rows are not whole 8-triangle blocks")
-    if kb.max_depth + 1 > STACK:
-        raise ValueError(f"BVH depth {kb.max_depth} exceeds the kernel stack")
     if n >= (1 << 31) - GROUP:
         raise ValueError(f"{n} rays exceed the kernel's 32-bit ray index")
+
+
+def _call(lib, fn_name, ins, outs, n, ints, dev):
+    """Launch the C entry point fn(ins..., n, ints..., outs..., stream) of a
+    kernel library on dev's current stream; raise if the launch failed."""
+    fn = getattr(native.load(lib), fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * len(ins) + [ctypes.c_int] * (1 + len(ints))
+                   + [ctypes.c_void_p] * (len(outs) + 1))
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(x.data_ptr() for x in ins), n, *ints, *(x.data_ptr() for x in outs), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
+
+
+def _launch(kb: KernelBVH, o, d, t_max, anyhit, variant="queue"):
+    _check_rays(kb, o, d, t_max, anyhit)
+    if kb.max_depth + 1 > STACK:
+        raise ValueError(f"BVH depth {kb.max_depth} exceeds the kernel stack")
+    n = o.shape[0]
+    dev = o.device
     g = -(-n // GROUP)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.zeros(2 * g, dtype=torch.int32, device=dev)
-    if n == 0:
-        return t, slot, scratch[:0]
-    fn = native.load("bvh_traverse").pbrt_bvh_traverse
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(kb.metas.data_ptr(), kb.nodes.data_ptr(), kb.tris.data_ptr(),
-                 kb.seed.data_ptr(), kb.seed_slots.data_ptr(), o.data_ptr(),
-                 d.data_ptr(), t_max.data_ptr(), anyhit.data_ptr(), n,
-                 t.data_ptr(), slot.data_ptr(), scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bvh_traverse launch failed: cudaError {err}")
-    traverse.launches += 1
-    return t, slot, scratch[:g] | (scratch[g:] << 24)
+    bary = VARIANTS[variant][2]
+    out = [t, slot] + ([torch.empty(n, device=dev), torch.empty(n, device=dev)] if bary else [])
+    if n > 0:
+        ins = [kb.metas, kb.nodes, kb.tris, kb.seed, kb.seed_slots, o, d, t_max, anyhit]
+        if bary:
+            _call("bvh_traverse", "pbrt_bvh_traverse_bary", ins, out + [scratch], n,
+                  [_BARY_IDS[variant]], dev)
+            traverse.bary_launches[variant] += 1
+        else:
+            _call("bvh_traverse", "pbrt_bvh_traverse", ins, out + [scratch], n, [], dev)
+            traverse.launches += 1
+    return (*out, scratch[:g] | (scratch[g:] << 24))
 
 
-def traverse(kb: KernelBVH, o, d, t_max, anyhit):
-    """Closest-hit / any-hit walk -> (t [N], slot [N], iters [ceil(N/1024)]).
+def traverse(kb: KernelBVH, o, d, t_max, anyhit, variant="queue"):
+    """Closest-hit / any-hit walk -> (t [N], slot [N], iters [ceil(N/1024)])
+    for variant "queue" (B1), (t, slot, b1, b2, iters) for "all", "block"
+    and "packet" (B2, B4, B5).
 
     CPU tensors take `traverse_plain`; CUDA tensors launch the kernel or
-    raise. `traverse.launches` counts kernel launches."""
+    raise. `traverse.launches` counts the B1 kernel's launches,
+    `traverse.bary_launches[variant]` those of the other variants."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown traversal variant {variant!r}")
     if o.device.type == "cpu":
-        return traverse_plain(kb, o, d, t_max, anyhit)
+        return traverse_plain(kb, o, d, t_max, anyhit, variant=variant)
     if o.device.type == "cuda":
-        return _launch(kb, o, d, t_max, anyhit)
+        return _launch(kb, o, d, t_max, anyhit, variant)
     raise NotImplementedError(f"no traversal for device {o.device}")
 
 
 traverse.launches = 0
+traverse.bary_launches = {"all": 0, "block": 0, "packet": 0}
+
+
+def _launch4(kb4: KernelBVH4, o, d, t_max, anyhit):
+    kb = kb4.kb
+    _check_rays(kb, o, d, t_max, anyhit)
+    M4 = kb4.axs4.shape[0]
+    for name, x, dt, shp in (("nodes4", kb4.nodes4, torch.float32, (M4, 24)),
+                             ("meta4", kb4.meta4, torch.int32, (4 * M4,)),
+                             ("axs4", kb4.axs4, torch.int32, (M4,))):
+        _check(name, x, dt, shp, o.device)
+    if kb4.stack_need > STACK4:
+        raise ValueError(f"the BVH4 walk needs {kb4.stack_need} > {STACK4} stack entries")
+    n = o.shape[0]
+    dev = o.device
+    g = -(-n // GROUP)
+    out = [torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, device=dev), torch.empty(n, device=dev)]
+    scratch = torch.zeros(2 * g, dtype=torch.int32, device=dev)
+    if n > 0:
+        _call("bvh4_traverse", "pbrt_bvh4_traverse",
+              [kb4.nodes4, kb4.meta4, kb4.axs4, kb.tris, kb.seed, kb.seed_slots, o, d, t_max,
+               anyhit], out + [scratch], n, [], dev)
+        traverse4.launches += 1
+    return (*out, scratch[:g] | (scratch[g:] << 24))
+
+
+def traverse4(kb4: KernelBVH4, o, d, t_max, anyhit):
+    """The 4-wide walk (B3) -> (t, slot, b1, b2, iters). CPU tensors take
+    `traverse4_plain`; CUDA tensors launch the kernel or raise.
+    `traverse4.launches` counts kernel launches."""
+    if o.device.type == "cpu":
+        return traverse4_plain(kb4, o, d, t_max, anyhit)
+    if o.device.type == "cuda":
+        return _launch4(kb4, o, d, t_max, anyhit)
+    raise NotImplementedError(f"no traversal for device {o.device}")
+
+
+traverse4.launches = 0

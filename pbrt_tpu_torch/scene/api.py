@@ -1,11 +1,15 @@
 """Scene-compiler state machine: directives -> host SceneDescription (port of
 pbrt_tpu/scene/api.py). Object instances and animated shapes become shared
 prototypes behind per-instance transform pairs. Directives the port does not
-cover yet (textures, media, TransformTimes other than 0 1) raise
-NotImplementedError naming what they met."""
+cover yet (textures, media, quadrics, curves, TransformTimes other than 0 1)
+raise NotImplementedError naming what they met. Triangle meshes come inline
+(trianglemesh), from PLY files (plymesh) or from Loop subdivision
+(loopsubdiv)."""
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -306,12 +310,42 @@ class Api:
                     shape_index=idx))
 
     # -- shapes ----------------------------------------------------------
-    def shape(self, kind, ps: ParamSet):
-        from pbrt_tpu_torch.shapes.triangle import mesh_from_params
-        if kind != "trianglemesh":
+    def _make_mesh(self, kind, ps: ParamSet, o2w):
+        """A shape's triangle mesh in world space (pbrt_tpu/shapes/factory.py's
+        trianglemesh, plymesh and loopsubdiv), or None for a PLY file that
+        is missing, which is logged and adds no shape."""
+        from pbrt_tpu_torch.shapes.triangle import TriangleMeshData, mesh_from_params
+        if kind == "trianglemesh":
+            return mesh_from_params(ps, o2w)
+        if kind not in ("plymesh", "loopsubdiv"):
             raise NotImplementedError(f"shape {kind!r} is not ported")
+        for name in ("alpha", "shadowalpha"):
+            if name in ps:
+                raise NotImplementedError(f"{kind} parameter {name!r} is not ported")
+        if kind == "plymesh":
+            from pbrt_tpu_torch.shapes.ply import read_ply
+            fname = ps.find_one_string("filename", "")
+            path = fname if os.path.isabs(fname) else os.path.join(self.cwd, fname)
+            if not os.path.exists(path):
+                logging.getLogger(__name__).warning("PLY not found: %s", path)
+                return None
+            v, n, uv, f = read_ply(path)
+        else:
+            from pbrt_tpu_torch.shapes.loopsubdiv import loop_subdivide
+            levels = ps.find_one_int("levels", ps.find_one_int("nlevels", 3))
+            v, f, n = loop_subdivide(ps.find_point3s("P"), ps.find_ints("indices").reshape(-1, 3),
+                                     levels)
+            uv = None
+        return TriangleMeshData(f.astype(np.int32), np.asarray(o2w.point(v), np.float32),
+                                None if n is None else np.asarray(o2w.normal(n), np.float32),
+                                uv, o2w.swaps_handedness())
+
+    def shape(self, kind, ps: ParamSet):
         o2w = self.ctm.t[0]
-        rec = ShapeRecord(kind, mesh=mesh_from_params(ps, o2w),
+        mesh = self._make_mesh(kind, ps, o2w)
+        if mesh is None:
+            return
+        rec = ShapeRecord("trianglemesh", mesh=mesh,
                           material=self.gs.material,
                           reverse_orientation=self.gs.reverse_orientation)
         if self.gs.area_light is not None:

@@ -4,9 +4,12 @@ instance paths of pbrt_tpu/scene/intersect.py).
 Both launches of a path-tracing bounce go through one traversal:
 `intersect` (camera rays) and `intersect_pair` (the next rays' closest hit
 and the NEE shadow rays' any-hit, in one 2N launch). The traversal returns
-leaf slots, so hit attributes come from one row gather of `slot_attr`, and
+leaf slots, so hit attributes come from one row gather of `slot_attr`. A
+world tree of up to BARY_ROUTE_NODES nodes takes the B1 walk, and the
 barycentrics are recomputed per lane with the kernel's own naive-shear
-arithmetic (`kernel_bary`). Scenes with instances add one instance-walk
+arithmetic (`kernel_bary`); a larger tree takes the "packet" walk (the
+reference's route through its B5 kernel), which returns them with the same
+arithmetic. Scenes with instances add one instance-walk
 launch after each traversal launch, bounded by the world hit; their hits
 are keyed by triangle row instead, and instanced hits get their frame moved
 to world. Geometry is detached: no autograd reaches the traversals.
@@ -25,6 +28,9 @@ from pbrt_tpu_torch.scene.types import (AT_HASN, AT_K, AT_LIGHT, AT_MAT, AT_N, A
 from pbrt_tpu_torch.shapes.triangle import triangle_shading
 
 TINY = 1e-20
+# the reference's SMEM_META_MAX: world trees with more nodes take the walk
+# that returns barycentrics (variant "packet")
+BARY_ROUTE_NODES = 1 << 15
 
 
 def kernel_bary(o, d, p0, p1, p2):
@@ -59,28 +65,36 @@ def kernel_bary(o, d, p0, p1, p2):
 
 
 def _closest(data, flags, o, d, t_max, anyhit):
-    """(t [N], slot [N]) of the closest (or, per lane, any) world hit."""
+    """(t [N], slot [N], b1, b2) of the closest (or, per lane, any) world
+    hit; b1 and b2 are None where the walk does not return them."""
     if flags.n_tris == 0:
-        return t_max, torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device)
-    t, slot, _ = traverse(data.bvh, o.detach().contiguous(), d.detach().contiguous(),
-                          t_max.detach().contiguous(), anyhit.to(torch.uint8).contiguous())
-    return t, slot
+        return (t_max, torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device),
+                None, None)
+    args = (data.bvh, o.detach().contiguous(), d.detach().contiguous(),
+            t_max.detach().contiguous(), anyhit.to(torch.uint8).contiguous())
+    if data.bvh.metas.shape[0] > BARY_ROUTE_NODES:
+        return traverse(*args, variant="packet")[:4]
+    t, slot, _ = traverse(*args)
+    return t, slot, None, None
 
 
-def _instance_pass(data, flags, o, d, t, slot, time):
-    """Fold the instance world's closest hits into the world hits. The
-    world t is the instance walk's t_max, so a tie keeps the world hit.
+def _instance_pass(data, flags, o, d, t, slot, b1, b2, time):
+    """Fold the instance world's closest hits into the world hits (with
+    their barycentrics, or None to compute them). The world t is the
+    instance walk's t_max, so a tie keeps the world hit.
     -> (t, tri, b1, b2, inst): triangle rows of tri_attr, -1 on a miss."""
     n = o.shape[0]
     dev = o.device
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    b1 = b2 = torch.zeros(n, device=dev)
-    if flags.n_tris > 0:
+    if flags.n_tris == 0:
+        b1 = b2 = torch.zeros(n, device=dev)
+    else:
         tri = torch.where(slot >= 0, data.bvh.order[torch.clamp(slot, min=0).to(torch.int64)],
                           tri)
-        attr = data.tri_attr[torch.clamp(tri, min=0).to(torch.int64)]
-        b1, b2 = kernel_bary(o, d, attr[:, AT_P0:AT_P0 + 3], attr[:, AT_P1:AT_P1 + 3],
-                             attr[:, AT_P2:AT_P2 + 3])
+        if b1 is None:
+            attr = data.tri_attr[torch.clamp(tri, min=0).to(torch.int64)]
+            b1, b2 = kernel_bary(o, d, attr[:, AT_P0:AT_P0 + 3], attr[:, AT_P1:AT_P1 + 3],
+                                 attr[:, AT_P2:AT_P2 + 3])
     ti, tri_i, b1i, b2i, inst_i, _ = instance_traverse(
         data.ibvh, o.detach().contiguous(), d.detach().contiguous(),
         t.detach().contiguous(), time.detach().contiguous(), flags.any_animated_inst)
@@ -93,13 +107,13 @@ def intersect(data, flags, o, d, t_max, time=None) -> SurfaceInteraction:
     """Closest hit of the whole wavefront -> SurfaceInteraction. time [N]
     places animated instances (None: time 0; static scenes ignore it)."""
     n = o.shape[0]
-    t, slot = _closest(data, flags, o, d, t_max,
-                       torch.zeros(n, dtype=torch.bool, device=o.device))
+    t, slot, b1, b2 = _closest(data, flags, o, d, t_max,
+                               torch.zeros(n, dtype=torch.bool, device=o.device))
     if flags.n_instances == 0:
-        return _assemble_si(data, o, d, t, slot)
+        return _assemble_si(data, o, d, t, slot, b1=b1, b2=b2)
     if time is None:
         time = torch.zeros(n, device=o.device)
-    t, tri, b1, b2, inst = _instance_pass(data, flags, o, d, t, slot, time)
+    t, tri, b1, b2, inst = _instance_pass(data, flags, o, d, t, slot, b1, b2, time)
     return _assemble_si(data, o, d, t, None, tri=tri, b1=b1, b2=b2, inst=inst, time=time,
                         trs=flags.any_animated_inst)
 
@@ -121,13 +135,16 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
         d_sh = torch.where(active_sh[:, None], d_sh, fd)
     anyhit = torch.cat([torch.zeros_like(active_nx), torch.ones_like(active_sh)])
     o2, d2 = torch.cat([o_nx, o_sh]), torch.cat([d_nx, d_sh])
-    t, slot = _closest(data, flags, o2, d2, torch.cat([tmax_nx, dist_sh]), anyhit)
+    t, slot, b1, b2 = _closest(data, flags, o2, d2, torch.cat([tmax_nx, dist_sh]), anyhit)
     if flags.n_instances == 0:
         occluded = active_sh & (slot[n:] >= 0)
-        return _assemble_si(data, o_nx, d_nx, t[:n], slot[:n]), occluded
+        if b1 is not None:
+            b1, b2 = b1[:n], b2[:n]
+        return _assemble_si(data, o_nx, d_nx, t[:n], slot[:n], b1=b1, b2=b2), occluded
     if time is None:
         time = torch.zeros(n, device=o_nx.device)
-    t, tri, b1, b2, inst = _instance_pass(data, flags, o2, d2, t, slot, torch.cat([time, time]))
+    t, tri, b1, b2, inst = _instance_pass(data, flags, o2, d2, t, slot, b1, b2,
+                                          torch.cat([time, time]))
     occluded = active_sh & (tri[n:] >= 0)
     si = _assemble_si(data, o_nx, d_nx, t[:n], None, tri=tri[:n], b1=b1[:n], b2=b2[:n],
                       inst=inst[:n], time=time, trs=flags.any_animated_inst)

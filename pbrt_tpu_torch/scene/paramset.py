@@ -63,9 +63,21 @@ class ParamSet:
         v = self.values.get(name)
         return float(v[0]) if v else float(default)
 
+    def find_one_int(self, name, default):
+        v = self.values.get(name)
+        return int(v[0]) if v else int(default)
+
     def find_one_bool(self, name, default):
         v = self.values.get(name)
         return bool(v[0]) if v else bool(default)
+
+    def find_ints(self, name):
+        v = self.values.get(name)
+        return None if v is None else np.asarray(v, np.int32)
+
+    def find_point3s(self, name):
+        v = self.values.get(name)
+        return None if v is None else np.asarray(v, np.float32).reshape(-1, 3)
 
     def find_one_string(self, name, default):
         v = self.values.get(name)

@@ -1,5 +1,5 @@
-"""The BVH and instance traversal kernels on the card, in a process
-without JAX.
+"""The BVH (2- and 4-wide) and instance traversal kernels on the card, in a
+process without JAX.
 
 Run on a machine with an NVIDIA GPU (`--noconftest` skips tests/conftest.py,
 which configures JAX; nothing here imports it):
@@ -8,6 +8,8 @@ which configures JAX; nothing here imports it):
 
 Every test skips where torch sees no CUDA device: the kernel has no CPU mode.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,9 @@ from pbrt_tpu_torch.accel import instance as I
 from pbrt_tpu_torch.accel import traverse as T
 from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
-from pbrt_tpu_torch.scene.bench import build_bench_scene, build_instanced_bench_scene
+from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench_scene,
+                                        build_ply_bench_scene)
+from pbrt_tpu_torch.scene.intersect import kernel_bary
 
 
 def _launch_rays(cs, dev):
@@ -148,6 +152,117 @@ def test_instanced_render_goes_through_both_kernels(animated):
     b, _, _ = render_sampler_integrator(cs, opts)
     assert torch.equal(a, b)
     c, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, "cpu", opts), opts)
+    a, c = a.cpu().numpy(), c.numpy()
+    assert np.all(np.isfinite(a)) and a.sum() > 0
+    near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
+    assert near >= 0.99 and abs(a.mean() - c.mean()) <= 0.01 * abs(c.mean())
+
+
+def _bench_tables(which, dev, tmp_path):
+    """A bench scene: "small", "large", or "ply", the PLY bench scene, whose
+    tree has more than 32,768 nodes."""
+    if which == "ply":
+        return build_ply_bench_scene(str(tmp_path), dev)
+    return build_bench_scene(which == "large", dev)
+
+
+def _hold(got, want, ah, kb, o, d):
+    """A with-barycentrics kernel against its plain walk: t, slot, b1, b2
+    bit-equal on closest-hit rays, equal any-hit flags, equal iters, no
+    overflow; b1/b2 bit-equal to kernel_bary on the closest hits."""
+    t, s, b1, b2, it = got
+    cl = ah == 0
+    assert int((s[cl] >= 0).sum()) > 1000 and int((s[~cl] >= 0).sum()) > 1000
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a[cl], b[cl])
+    assert torch.equal(s[~cl] >= 0, want[1][~cl] >= 0)
+    assert torch.equal(it, want[4]) and not bool(torch.any(it & T.OVF_BIT))
+    hit = cl & (s >= 0)
+    rows = kb.tris[s[hit].long()]
+    kb1, kb2 = kernel_bary(o[hit], d[hit], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+    assert torch.equal(kb1, b1[hit]) and torch.equal(kb2, b2[hit])
+
+
+@pytest.mark.parametrize("which", ["small", "large", "ply"])
+@pytest.mark.parametrize("variant", ["all", "block", "packet"])
+def test_bary_kernel_matches_plain(variant, which, tmp_path):
+    """B2 ("all") and B4/B5 ("block"/"packet") against their plain walk."""
+    needs_cuda()
+    dev = torch.device("cuda")
+    cs = _bench_tables(which, dev, tmp_path)
+    kb = cs.data.bvh
+    assert (kb.metas.shape[0] > 32768) == (which == "ply")
+    o, d, tm, ah = _launch_rays(cs, dev)
+    before = dict(T.traverse.bary_launches)
+    got = T.traverse(kb, o, d, tm, ah, variant=variant)
+    torch.cuda.synchronize()
+    assert T.traverse.bary_launches[variant] == before[variant] + 1
+    _hold(got, T.traverse_plain(kb, o, d, tm, ah, variant=variant), ah, kb, o, d)
+
+
+@pytest.mark.parametrize("which", ["small", "large", "ply"])
+def test_bvh4_kernel_matches_plain(which, tmp_path):
+    """B3 against its plain walk, and its hits against B1's: equal hit
+    masks, t equal on >= 99.99% of closest hits."""
+    needs_cuda()
+    dev = torch.device("cuda")
+    cs = _bench_tables(which, dev, tmp_path)
+    kb = cs.data.bvh
+    kb4 = T.pack_kernel_bvh4(kb)
+    o, d, tm, ah = _launch_rays(cs, dev)
+    before = T.traverse4.launches
+    got = T.traverse4(kb4, o, d, tm, ah)
+    torch.cuda.synchronize()
+    assert T.traverse4.launches == before + 1
+    _hold(got, T.traverse4_plain(kb4, o, d, tm, ah), ah, kb, o, d)
+    t1, s1, _ = T.traverse(kb, o, d, tm, ah)
+    cl = ah == 0
+    assert torch.equal(got[1] >= 0, s1 >= 0)
+    hit = cl & (s1 >= 0)
+    assert float((got[0][hit] == t1[hit]).float().mean()) >= 0.9999
+
+
+def test_new_wrappers_raise_instead_of_falling_back(tmp_path):
+    needs_cuda()
+    dev = torch.device("cuda")
+    cs = build_bench_scene(False, dev)
+    kb = cs.data.bvh
+    o, d = (torch.as_tensor(a, device=dev) for a in rays_at_knot(64, seed=35))
+    tm = torch.full((64,), float("inf"), device=dev)
+    ah = torch.zeros(64, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="variant"):
+        T.traverse(kb, o, d, tm, ah, variant="queue4")
+    with pytest.raises(TypeError):
+        T.traverse(kb, o, d.double(), tm, ah, variant="packet")
+    with pytest.raises(ValueError):
+        T.traverse(kb, o, d, tm.cpu(), ah, variant="all")
+    kb4 = T.pack_kernel_bvh4(kb)
+    with pytest.raises(ValueError):
+        T.traverse4(kb4, o, d.t().contiguous().t(), tm, ah)
+    with pytest.raises(ValueError):
+        T.traverse4(dataclasses.replace(kb4, nodes4=kb4.nodes4[:-1]), o, d, tm, ah)
+    with pytest.raises(ValueError):
+        T.traverse4(dataclasses.replace(kb4, stack_need=T.STACK4 + 1), o, d, tm, ah)
+
+
+def test_ply_render_goes_through_the_packet_kernel(tmp_path):
+    """A crop of the PLY bench scene: its tree is over 32,768 nodes, so each
+    pass launches the "packet" kernel once for the camera and 4 times for
+    the bounces and no B1 kernel; bitwise equal over two renders, and close
+    to the same crop rendered on the CPU with the plain walk."""
+    needs_cuda()
+    opts = Options(crop_window=(0.5, 0.5625, 0.5, 0.5625))
+    cs = build_ply_bench_scene(str(tmp_path), "cuda", options=opts)
+    T.traverse.launches = 0
+    T.traverse.bary_launches["packet"] = 0
+    a, cnt, passes = render_sampler_integrator(cs, opts)
+    torch.cuda.synchronize()
+    assert T.traverse.bary_launches["packet"] == 5 * passes and T.traverse.launches == 0
+    assert cnt["camera_rays"] == 16 * 16 * 4
+    b, _, _ = render_sampler_integrator(cs, opts)
+    assert torch.equal(a, b)
+    c, _, _ = render_sampler_integrator(build_ply_bench_scene(str(tmp_path), "cpu", options=opts),
+                                        opts)
     a, c = a.cpu().numpy(), c.numpy()
     assert np.all(np.isfinite(a)) and a.sum() > 0
     near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()

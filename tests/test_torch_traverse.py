@@ -1,13 +1,16 @@
 """The port's BVH tables and traversal against pbrt_tpu.
 
-- the packer's arrays are bit-equal to pack_pallas_bvh;
-- the plain walk against the Pallas kernel in interpret mode (one block);
+- the packers' arrays are bit-equal to pack_pallas_bvh and _pack_bvh4;
+- each plain walk against its Pallas kernel in interpret mode (B1-B5, one
+  128-ray block at one pop per step);
 - the plain walk against the XLA walk on the 4,612-triangle bench tables:
   equal hit and any-hit masks, |dt| <= 1e-6*max(1, t), and order[slot]
   equal to the reference's triangle on >= 99.9% of hits, every mismatch
   a tie (the reference triangle's t within 1e-6 of the port's t);
 - the CUDA kernel against the plain walk, bit for bit (needs a card).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +19,9 @@ import jax.numpy as jnp
 
 from torch_port_helpers import jax_bench_scene, jax_scene_arrays, needs_cuda, rays_at_knot
 
+from pbrt_tpu.accel import pallas_traverse
 from pbrt_tpu.accel.bvh import build_bvh as jbuild
-from pbrt_tpu.accel.pallas_traverse import intersect_bvh_pallas, pack_pallas_bvh
+from pbrt_tpu.accel.pallas_traverse import _traverse, _traverse_cols, pack_pallas_bvh
 from pbrt_tpu.accel.traverse import intersect_bvh
 from pbrt_tpu.shapes.triangle import intersect_tri
 from pbrt_tpu_torch.accel import traverse as T
@@ -46,12 +50,19 @@ def _plain(kb, o, d, tm, ah):
     return t.numpy(), s.numpy(), it.numpy()
 
 
-@pytest.mark.parametrize("n_u,n_v", [(8, 8), (96, 24)])
-def test_pack_matches_reference(n_u, n_v):
-    tp, lo, hi = _knot(n_u, n_v)
+@pytest.fixture(scope="module", params=[(8, 8), (96, 24)], ids=["8-8", "96-24"])
+def knot_tables(request):
+    """(the port's tables, the reference's tables and leaf order) of a knot
+    of n_u x n_v quads."""
+    tp, lo, hi = _knot(*request.param)
     kb = T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2])
     _, host = jbuild(lo, hi, with_host=True)
     pb, order = pack_pallas_bvh(host, tp[:, 0], tp[:, 1], tp[:, 2])
+    return kb, pb, order
+
+
+def test_pack_matches_reference(knot_tables):
+    kb, pb, order = knot_tables
     M = kb.metas.shape[0]
     assert np.array_equal(kb.metas.numpy(), np.asarray(pb.metas))
     assert np.array_equal(kb.nodes.numpy(), np.asarray(pb.nodes).reshape(-1, 16)[:M])
@@ -63,22 +74,72 @@ def test_pack_matches_reference(n_u, n_v):
     assert 0 < kb.max_depth < T.STACK
 
 
-def test_plain_walk_matches_pallas_interpret():
-    tp, lo, hi = _knot(8, 8)             # 128 triangles: interpret mode is slow
+def test_pack4_matches_reference(knot_tables):
+    """The 4-wide collapse: boxes (NaN on empty slots), slot words and axis
+    words bit-equal to _pack_bvh4's; the walk's stack need is counted."""
+    kb, pb, _ = knot_tables
+    kb4 = T.pack_kernel_bvh4(kb)
+    M4 = kb4.axs4.shape[0]
+    assert pb.nodes4 is not None and M4 > 1
+    want = np.asarray(pb.nodes4).reshape(-1, 32)
+    assert np.array_equal(kb4.nodes4.numpy(), want[:M4, :24], equal_nan=True)
+    assert np.all(np.isnan(want[M4:, :24]))
+    assert np.array_equal(kb4.meta4.numpy(), np.asarray(pb.meta4))
+    assert np.array_equal(kb4.axs4.numpy(), np.asarray(pb.axs4))
+    assert 3 < kb4.stack_need <= 3 * kb.max_depth + 4
+
+
+ONE_BLOCK = dict(rows=1, pops=1, interpret=True)
+# kernel -> (the reference's call at one 128-ray block and one pop a step,
+# the port's plain walk; None: the 4-wide walk). B5 is the reference's
+# default route on trees over SMEM_META_MAX nodes; the test patches that cap
+# below the tree, and mode="packet" is traced by no other test, so jit's
+# cache cannot hold a trace made with the unpatched cap.
+KERNELS = {
+    "B1": (lambda pb, o, d, tm: _traverse_cols(pb, *o.T, *d.T, tm, queue=1, **ONE_BLOCK),
+           "queue"),
+    "B2": (lambda pb, o, d, tm: _traverse_cols(pb, *o.T, *d.T, tm, queue=0, **ONE_BLOCK),
+           "all"),
+    "B3": (lambda pb, o, d, tm: _traverse_cols(pb, *o.T, *d.T, tm, use4=True, **ONE_BLOCK),
+           None),
+    "B4": (lambda pb, o, d, tm: _traverse(pb, o, d, tm, mode="block", **ONE_BLOCK), "block"),
+    "B5": (lambda pb, o, d, tm: _traverse(pb, o, d, tm, mode="packet", **ONE_BLOCK), "packet"),
+}
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_plain_walk_matches_pallas_interpret(kernel, monkeypatch):
+    """Each plain walk against its TPU kernel in interpret mode on the
+    128-triangle knot, 128 closest-hit rays: equal hit masks,
+    |dt| <= 1e-6 max(1, t), the same slot on >= 99.9% of hits or a tie,
+    and b1/b2 within 1e-6 where the slots agree."""
+    tp, lo, hi = _knot(8, 8)
     kb = T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2])
     _, host = jbuild(lo, hi, with_host=True)
     pb, _ = pack_pallas_bvh(host, tp[:, 0], tp[:, 1], tp[:, 2])
-    o, d, tm, _ = _rays(T.GROUP, seed=5)
-    t, s, _ = _plain(kb, o, d, tm, np.zeros(T.GROUP, np.uint8))
-    ref = intersect_bvh_pallas(pb, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm),
-                               interpret=True)
+    n = 128
+    o, d, tm, _ = _rays(n, seed=5)
+    call, variant = KERNELS[kernel]
+    if kernel == "B5":
+        monkeypatch.setattr(pallas_traverse, "SMEM_META_MAX", 4)
+    ref = call(pb, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm))
+    args = [torch.as_tensor(a) for a in (o, d, tm, np.zeros(n, np.uint8))]
+    if variant is None:
+        got = T.traverse4(T.pack_kernel_bvh4(kb), *args)
+    else:
+        got = T.traverse(kb, *args, variant=variant)
+    t, s = got[0].numpy(), got[1].numpy()
     rt, rs = np.asarray(ref.t), np.asarray(ref.slot)
     hit = s >= 0
-    assert hit.sum() > 100
+    assert hit.sum() > 40
     assert np.array_equal(hit, rs >= 0)
     assert np.all(np.abs(t[hit] - rt[hit]) <= 1e-6 * np.maximum(1.0, rt[hit]))
     same = s[hit] == rs[hit]
     assert same.mean() >= 0.999 or np.all(np.abs(t[hit] - rt[hit])[~same] <= 1e-6)
+    if len(got) == 5:
+        both = hit & (s == rs)
+        for mine, theirs in ((got[2], ref.b1), (got[3], ref.b2)):
+            assert np.all(np.abs(mine.numpy()[both] - np.asarray(theirs)[both]) <= 1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +225,36 @@ def test_launch_rejects_what_the_kernel_cannot_take(bench_tables, bad, err):
         o = torch.cat([o[:1], o])[1:]
     with pytest.raises(err):
         T._launch(kb, o, d, tm, ah)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("unknown_variant", ValueError), ("packet_d_float64", TypeError),
+    ("bvh4_nodes_shape", ValueError), ("bvh4_meta_dtype", TypeError),
+    ("bvh4_stack", ValueError), ("bvh4_leaf_root", ValueError)])
+def test_new_walks_reject_what_their_kernels_cannot_take(bench_tables, bad, err):
+    """The with-barycentrics and 4-wide wrappers check before they build or
+    launch, so their refusals are exercised here on CPU tensors, as is the
+    4-wide packer's."""
+    _, kb = bench_tables
+    n = 16
+    o, d = (torch.as_tensor(a) for a in rays_at_knot(n, seed=4))
+    tm = torch.full((n,), float("inf"))
+    ah = torch.zeros(n, dtype=torch.uint8)
+    kb4 = T.pack_kernel_bvh4(kb)
+    with pytest.raises(err):
+        if bad == "unknown_variant":
+            T.traverse(kb, o, d, tm, ah, variant="queue4")
+        elif bad == "packet_d_float64":
+            T._launch(kb, o, d.double(), tm, ah, "packet")
+        elif bad == "bvh4_nodes_shape":
+            T._launch4(dataclasses.replace(kb4, nodes4=kb4.nodes4[:-1]), o, d, tm, ah)
+        elif bad == "bvh4_meta_dtype":
+            T._launch4(dataclasses.replace(kb4, meta4=kb4.meta4.long()), o, d, tm, ah)
+        elif bad == "bvh4_stack":
+            T._launch4(dataclasses.replace(kb4, stack_need=T.STACK4 + 1), o, d, tm, ah)
+        else:
+            tp, lo, hi = _knot(2, 2)
+            T.pack_kernel_bvh4(T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2]))
 
 
 @pytest.mark.parametrize("large", [False, True])
