@@ -2,9 +2,11 @@
 
 Phases (any failure raises and exits non-zero; nothing catches it):
   1. require a CUDA device; print the card's name and power limit;
-  2. build both kernels, the BVH traversal (csrc/bvh_traverse.cu) and the
-     two-level instance traversal (csrc/instance_traverse.cu), one nvcc
-     each, started together;
+  2. build the three kernel sources, the BVH traversals (csrc/bvh_traverse.cu,
+     csrc/bvh4_traverse.cu) and the two-level instance traversal
+     (csrc/instance_traverse.cu), one nvcc each, started together; print
+     each kernel's registers, spill bytes, stack frame and shared memory
+     as ptxas reports them;
   3. hold the kernel against its plain PyTorch walk on the large bench knot
      at the main path's shapes (131,072 camera rays; a 262,144-ray pair
      launch with an any-hit half), and on both bench knots with 100,003
@@ -16,7 +18,7 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      02sequence at 4 spp, depth 4) through the port's front end and driver:
      finite and nonzero, one camera launch plus 4 pair launches per pass
      through the kernel (one more render under torch.profiler for the
-     device's busy time), a 32x32 crop bitwise equal over two renders and
+     device's busy time and B1's device ms), a 32x32 crop bitwise equal over two renders and
      close to the same crop rendered on the CPU with the plain walk;
   6. hold the instance kernel against its plain walk on the instanced bench
      scene (64 instances of the large knot) and on its animated variant, at
@@ -28,11 +30,15 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      the same, or where the kernel's acosf/sinf/rsqrtf round otherwise than
      torch's ops, >= 99.9% equal triangle and inst with
      |dt| <= 1e-5 max(1, t); no stack overflow; hits in both the instances
-     and the world. Time both with CUDA events;
+     and the world. Time both with CUDA events beside B1 on the large
+     knot's pair launch; print the time the scene's build took to derive
+     the kernel's walk and instance records, and the static shell launch's work per ray (interior
+     pops, box tests, triangle tests, instance entries, deepest stack);
   7. render both instanced scenes (256x256, 02sequence at 4 spp, depth 4)
      end to end, three times each after a warm-up: finite and nonzero, 5
      launches per pass of each kernel; one more render under
-     torch.profiler for the device's busy time; a 32x32 crop bitwise equal
+     torch.profiler for the device's busy time and each kernel's device
+     ms; a 32x32 crop bitwise equal
      over two renders and close to the same crop rendered on the CPU with
      the plain walks;
   8. build the PLY bench scene (the 100,352-triangle knot read from a PLY
@@ -42,7 +48,8 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      pair launch with an any-hit half, 100,003 random rays): t, slot, b1,
      b2 and iters bit-equal on closest-hit rays, equal hit flags on any-hit
      rays, no overflow, and b1/b2 bit-equal to kernel_bary on the hits;
-     time it beside B1 on the same tables and rays;
+     time it beside B1 on the same tables and rays; print the time the
+     scene's build took to derive its walk records;
   9. hold the "all" kernel (B2) on the PLY knot and the 4-wide kernel (B3)
      on both bench knots and the PLY knot against their plain walks the
      same way, and B3 against B1: equal hit masks, t bit-equal on >= 99.99%
@@ -50,8 +57,9 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      printed); time both beside B1;
   10. render the PLY bench scene end to end three times after a warm-up and
      its loopsubdiv variant once: finite and nonzero, 5 "packet" launches
-     per pass and no B1 launch; one render under torch.profiler; a 32x32
-     crop bitwise equal over two renders and close to the CPU crop.
+     per pass and no B1 launch; one render under torch.profiler for the
+     device's busy time and the packet kernel's device ms; a 32x32 crop
+     bitwise equal over two renders and close to the CPU crop.
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
@@ -93,6 +101,8 @@ PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # ray setup; one child-box slab test; one triangle test; moving a ray into
 # prototype space (3x4 matrix on o and d); a static instance's walk matrix
 OPS = {"setup": 20, "box": 26, "tri": 51, "xform": 33, "lerp": 24}
+# the port's kernel functions, as torch.profiler names their launches
+PORT_KERNELS = ("traverse_kernel", "packet_kernel", "traverse4_kernel", "instance_kernel")
 
 
 def card_line():
@@ -103,6 +113,7 @@ def card_line():
 
 
 def cuda_ms(fn, reps, warm=True):
+    """CUDA-event time of one call of fn, averaged over reps calls."""
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -113,6 +124,63 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def random_rays(n, dev, seed):
+    """Rays from a shell around the knot toward it, zeroed direction
+    components on every 7th / 11th ray, every other ray any-hit."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-1, 1, (n, 3)).astype(np.float32) - o
+    d[::7, 0] = 0.0
+    d[::11, 1] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ah = (np.arange(n) % 2).astype(np.uint8)
+    return [torch.as_tensor(a, device=dev) for a in (o, d, np.full(n, np.inf, np.float32), ah)]
+
+
+def pair_launch(n_cam, dev):
+    """The pair launch: 2 n_cam random rays, the second half any-hit."""
+    pair = random_rays(2 * n_cam, dev, seed=1)
+    pair[3] = torch.cat([torch.zeros(n_cam, dtype=torch.uint8, device=dev),
+                         torch.ones(n_cam, dtype=torch.uint8, device=dev)])
+    return pair
+
+
+def camera_launch(cs, dev):
+    """The camera launch of a bench scene: every pixel at samples 0 and 1,
+    unit directions -> (o, d, time), 131,072 rays at 256x256."""
+    px_np, py_np = sample_pixels(cs.film)
+    n_pix = px_np.shape[0]
+    px = torch.as_tensor(px_np, device=dev).repeat(2)
+    py = torch.as_tensor(py_np, device=dev).repeat(2)
+    sidx = torch.arange(2, device=dev, dtype=torch.int32).repeat_interleave(n_pix)
+    o, d, _, _ = camera_rays(cs, px, py, sidx)
+    d = d / d.norm(dim=1, keepdim=True)
+    return o.contiguous(), d.contiguous(), sample_dim(cs.sampler, px, py, sidx, 4)
+
+
+def shell_rays(n, dev, seed):
+    """Rays from a shell of radius 12 around the instance grid toward
+    points inside its bounds, with times in [-0.25, 1.25)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = 12.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    o[:, 1] = np.abs(o[:, 1])
+    d = rng.uniform([-6.0, -1.0, -6.0], [6.0, 1.2, 6.0], (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = rng.uniform(-0.25, 1.25, n)
+    return [torch.as_tensor(a.astype(np.float32), device=dev) for a in (o, d, tm)]
+
+
+def world_bounded(cs, o, d, time):
+    """The instance launch's inputs as the main path gives them: t_max is the
+    BVH kernel's closest world hit -> ([ib, o, d, t_max, time, trs], world slot)."""
+    n = o.shape[0]
+    t_w, slot_w, _ = T.traverse(cs.data.bvh, o, d, torch.full((n,), float("inf"), device=o.device),
+                                torch.zeros(n, dtype=torch.uint8, device=o.device))
+    return [cs.data.ibvh, o, d, t_w, time, cs.flags.any_animated_inst], slot_w
 
 
 def zero_counts():
@@ -217,42 +285,6 @@ def time_kernels(names_tables, rays, label, card, plain_name=None):
     return out
 
 
-def random_rays(n, dev, seed):
-    """Rays from a shell around the knot toward it, zeroed direction
-    components on every 7th / 11th ray, every other ray any-hit."""
-    rng = np.random.default_rng(seed)
-    o = rng.normal(size=(n, 3)).astype(np.float32)
-    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
-    d = rng.uniform(-1, 1, (n, 3)).astype(np.float32) - o
-    d[::7, 0] = 0.0
-    d[::11, 1] = 0.0
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    ah = (np.arange(n) % 2).astype(np.uint8)
-    return [torch.as_tensor(a, device=dev) for a in (o, d, np.full(n, np.inf, np.float32), ah)]
-
-
-def shell_rays(n, dev, seed):
-    """Rays from a shell of radius 12 around the instance grid toward
-    points inside its bounds, with times in [-0.25, 1.25)."""
-    rng = np.random.default_rng(seed)
-    o = rng.normal(size=(n, 3))
-    o = 12.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
-    o[:, 1] = np.abs(o[:, 1])
-    d = rng.uniform([-6.0, -1.0, -6.0], [6.0, 1.2, 6.0], (n, 3)) - o
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tm = rng.uniform(-0.25, 1.25, n)
-    return [torch.as_tensor(a.astype(np.float32), device=dev) for a in (o, d, tm)]
-
-
-def world_bounded(cs, o, d, time):
-    """The instance launch's inputs as the main path gives them: t_max is the
-    BVH kernel's closest world hit -> ([ib, o, d, t_max, time, trs], world slot)."""
-    n = o.shape[0]
-    t_w, slot_w, _ = T.traverse(cs.data.bvh, o, d, torch.full((n,), float("inf"), device=o.device),
-                                torch.zeros(n, dtype=torch.uint8, device=o.device))
-    return [cs.data.ibvh, o, d, t_w, time, cs.flags.any_animated_inst], slot_w
-
-
 def compare_inst(args, slot_w, counts=None):
     """Instance kernel vs plain walk on one launch -> max |dt| over hits."""
     before = I.instance_traverse.launches
@@ -308,7 +340,8 @@ def bound_ms(counts, n, ray_bytes, inst_bytes=0, enter_ops=0, fixed_bytes=0):
 
 def profile_render(cs, opts):
     """One render under torch.profiler -> (device ms, device kernel count,
-    the 5 ops with the most device time, the instance kernel's device ms)."""
+    the 5 ops with the most device time, {port kernel function: its device
+    ms in the render})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         render_sampler_integrator(cs, opts)
@@ -320,9 +353,12 @@ def profile_render(cs, opts):
     ops = sorted((e for e in avgs if e.device_type != cuda),
                  key=lambda e: e.self_device_time_total, reverse=True)[:5]
     top = ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f}" for e in ops)
-    inst = sum(e.self_device_time_total for e in avgs
-               if e.device_type == cuda and "instance_kernel" in e.key) / 1e3
-    return busy, len(kernels), top, inst
+    mine = dict.fromkeys(PORT_KERNELS, 0.0)
+    for e in avgs:
+        name = next((k for k in PORT_KERNELS if f"::{k}" in e.key), None)
+        if e.device_type == cuda and name:
+            mine[name] += e.self_device_time_total / 1e3
+    return busy, len(kernels), top, mine
 
 
 def render_instanced(animated, dev, card):
@@ -355,10 +391,11 @@ def render_instanced(animated, dev, card):
           f"launches each; {samples / wall:.0f} samples/s, {live / wall / 1e6:.3f} M live "
           f"rays/s ({live} live rays), mean {float(img.mean()):.5f}  [{card}]")
 
-    busy, n_kern, top, inst_ms = profile_render(cs, opts)
+    busy, n_kern, top, mine = profile_render(cs, opts)
     print(f"instanced render ({label}) under torch.profiler: {n_kern} device kernels, "
           f"{busy:.1f} ms device time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; "
-          f"instance kernel {inst_ms:.2f} ms; top device ops (ms): {top}  [{card}]")
+          f"instance kernel {mine['instance_kernel']:.3f} ms, B1 "
+          f"{mine['traverse_kernel']:.3f} ms; top device ops (ms): {top}  [{card}]")
 
     b, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, dev, crop), crop)
     c, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, "cpu", crop), crop)
@@ -405,7 +442,11 @@ def main():
     # ---- 2: build ----
     for name, sec in native.load_all(["bvh_traverse", "bvh4_traverse",
                                       "instance_traverse"]).items():
-        print(f"build: {name}.cu in {sec:.2f} s")
+        print(f"build: {name}.cu in {sec:.2f} s; " + "; ".join(
+            f"{k}: {v.get('registers')} registers, {v.get('spill_stores')} / "
+            f"{v.get('spill_loads')} bytes spill stores / loads, {v.get('stack_frame')} bytes "
+            f"stack frame, {v.get('static_smem')} bytes static shared memory"
+            for k, v in native.kernel_resources(name).items()))
 
     # ---- 3: kernel vs plain at the main path's shapes ----
     t0 = time.time()
@@ -413,19 +454,11 @@ def main():
     kb = cs.data.bvh
     print(f"large scene built in {time.time() - t0:.2f} s: {kb.metas.shape[0]} nodes, "
           f"{kb.tris.shape[0] // T.LEAF_TRIS} leaves, depth {kb.max_depth}")
-    px_np, py_np = sample_pixels(cs.film)
-    n_pix = px_np.shape[0]
-    px = torch.as_tensor(px_np, device=dev).repeat(2)
-    py = torch.as_tensor(py_np, device=dev).repeat(2)
-    sidx = torch.arange(2, device=dev, dtype=torch.int32).repeat_interleave(n_pix)
-    o, d, _, _ = camera_rays(cs, px, py, sidx)
+    o, d, _ = camera_launch(cs, dev)
     n_cam = o.shape[0]
-    d = d / d.norm(dim=1, keepdim=True)
-    cam = [o.contiguous(), d.contiguous(), torch.full((n_cam,), float("inf"), device=dev),
+    cam = [o, d, torch.full((n_cam,), float("inf"), device=dev),
            torch.zeros(n_cam, dtype=torch.uint8, device=dev)]
-    pair = random_rays(2 * n_cam, dev, seed=1)
-    pair[3] = torch.cat([torch.zeros(n_cam, dtype=torch.uint8, device=dev),
-                         torch.ones(n_cam, dtype=torch.uint8, device=dev)])
+    pair = pair_launch(n_cam, dev)
     odd = random_rays(100_003, dev, seed=2)
     small = build_bench_scene(large=False, device=dev)
     pair_counts = T.WalkCounts(kb.metas)
@@ -478,10 +511,10 @@ def main():
     print(f"large render: {wall:.3f} s, {passes} passes, {launches} kernel launches, "
           f"{samples / wall:.0f} samples/s, {live / wall / 1e6:.3f} M live rays/s "
           f"({live} live rays), mean {float(img.mean()):.5f}  [{card}]")
-    busy, n_kern, top, _ = profile_render(cs, opts)
+    busy, n_kern, top, mine = profile_render(cs, opts)
     print(f"large render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device "
-          f"time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; top device ops (ms): "
-          f"{top}  [{card}]")
+          f"time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; B1 "
+          f"{mine['traverse_kernel']:.3f} ms; top device ops (ms): {top}  [{card}]")
 
     crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
     a, _, _ = render_sampler_integrator(build_bench_scene(True, dev, crop), crop)
@@ -497,11 +530,9 @@ def main():
         ib = cs_i.data.ibvh
         print(f"instanced scene ({label}): {ib.metas.shape[0]} nodes, "
               f"{ib.tris.shape[0] // T.LEAF_TRIS} leaf blocks, {ib.iroot.shape[0]} instances, "
-              f"walk stack {ib.stack_need} of {I.STACK}")
-        tcam = sample_dim(cs_i.sampler, px, py, sidx, 4)
-        o_c, d_c, _, _ = camera_rays(cs_i, px, py, sidx)
-        d_c = d_c / d_c.norm(dim=1, keepdim=True)
-        launches_i = {"camera": world_bounded(cs_i, o_c.contiguous(), d_c.contiguous(), tcam),
+              f"walk stack {ib.stack_need} of {I.STACK}; {ib.recs.shape[0]} walk records and "
+              f"{ib.irec.shape[0]} instance records derived in {ib.recs_ms:.1f} ms at its build")
+        launches_i = {"camera": world_bounded(cs_i, *camera_launch(cs_i, dev)),
                       "shell": world_bounded(cs_i, *shell_rays(2 * n_cam, dev, seed=3)),
                       "ragged": world_bounded(cs_i, *shell_rays(100_003, dev, seed=4))}
         for name, (args, slot_w) in launches_i.items():
@@ -512,13 +543,23 @@ def main():
             args = launches_i[name][0]
             plain = cuda_ms(lambda: I.instance_traverse_plain(*args), 1, warm=False)
             kern = cuda_ms(lambda: I.instance_traverse(*args), 20)
+            b1 = cuda_ms(lambda: T.traverse(kb, *pair), 20)   # the yardstick, B1
             kern2 = cuda_ms(lambda: I.instance_traverse(*args), 20)
+            b1 = min(b1, cuda_ms(lambda: T.traverse(kb, *pair), 20))
             plain2 = cuda_ms(lambda: I.instance_traverse_plain(*args), 1, warm=False)
             inst_timing[label, name] = (min(kern, kern2), min(plain, plain2))
             print(f"instance_traverse {label} {name} launch, {args[1].shape[0]} rays: kernel "
                   f"{inst_timing[label, name][0]:.3f} ms, plain "
-                  f"{inst_timing[label, name][1]:.3f} ms  [{card}]")
+                  f"{inst_timing[label, name][1]:.3f} ms; B1 on the large knot's pair launch "
+                  f"{b1:.3f} ms  [{card}]")
         del launches_i, cs_i
+    n_shell = 2 * n_cam
+    print(f"work per ray of the static shell launch (plain walk): "
+          f"{inst_counts.interior / n_shell:.2f} interior pops, "
+          f"{inst_counts.interior * inst_counts.boxes / n_shell:.2f} box tests, "
+          f"{inst_counts.tri_tests / n_shell:.2f} triangle tests, "
+          f"{inst_counts.enters / n_shell:.2f} instance entries; stack at most "
+          f"{inst_counts.max_stack} entries")
 
     # ---- 7: both instanced scenes, end to end ----
     inst_launches = sum(render_instanced(animated, dev, card) for animated in (False, True))
@@ -532,8 +573,9 @@ def main():
           f"{kbp.metas.shape[0]} nodes, {kbp.tris.shape[0] // T.LEAF_TRIS} leaves, depth "
           f"{kbp.max_depth}, {T.tpu_table_bytes(kbp) / 2 ** 20:.3f} MiB of reference kernel "
           f"tables")
-    o_p, d_p, _, _ = camera_rays(cs_p, px, py, sidx)
-    cam_p = [o_p.contiguous(), (d_p / d_p.norm(dim=1, keepdim=True)).contiguous(), cam[2], cam[3]]
+    print(f"PLY tree: {kbp.recs.shape[0]} walk records derived in {kbp.recs_ms:.1f} ms at "
+          f"its build")
+    cam_p = [*camera_launch(cs_p, dev)[:2], cam[2], cam[3]]
     counts = {n: T.WalkCounts(kbp.metas) for n in ("bvh_traverse_packet", "bvh_traverse_all")}
     errs = {"bvh_traverse_packet": max(
         compare(kbp, *cam_p, name="bvh_traverse_packet"),
@@ -606,10 +648,10 @@ def main():
           f"{256 * 256 * cs_p.sampler.rounded_spp() / wall:.0f} samples/s, "
           f"{live / wall / 1e6:.3f} M live rays/s ({live} live rays), mean "
           f"{float(img.mean()):.5f}  [{card}]")
-    busy, n_kern, top, _ = profile_render(cs_p, opts)
+    busy, n_kern, top, mine = profile_render(cs_p, opts)
     print(f"PLY render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device time, "
-          f"{100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; top device ops (ms): {top}  "
-          f"[{card}]")
+          f"{100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; packet kernel "
+          f"{mine['packet_kernel']:.3f} ms; top device ops (ms): {top}  [{card}]")
     b, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, dev, options=crop),
                                         crop)
     c, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, "cpu", options=crop),
@@ -633,7 +675,7 @@ def main():
     n_pair = pair[0].shape[0]
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "
-        f"box tests, {c.tri_tests / n_pair:.2f} triangle tests"
+        f"box tests, {c.tri_tests / n_pair:.2f} triangle tests, stack at most {c.max_stack}"
         for name, c in (("bvh_traverse", ply_b1_counts), *counts.items())))
 
     # rays in (o, d, t_max, anyhit) and out (t, slot); the occluder seed

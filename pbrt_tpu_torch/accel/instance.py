@@ -23,13 +23,14 @@ tensors it launches csrc/instance_traverse.cu or raises; nothing falls back.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel.bvh import build_bvh
-from pbrt_tpu_torch.accel.traverse import (GROUP, LEAF_TRIS, WalkCounts, _call, _check, _iters,
-                                           _Rays, leaf_blocks, node_depths)
+from pbrt_tpu_torch.accel.traverse import (GROUP, LEAF_TRIS, REC_FLOATS, WalkCounts, _call, _check,
+                                           _iters, _Rays, leaf_blocks, node_depths, walk_records)
 
 STACK = 96           # per-ray stack entries, in the kernel and the plain walk
 RESTORE = -2         # stack sentinel: leave the current instance
@@ -38,6 +39,8 @@ PAYLOAD_MASK = 0x1FFFFFF
 IMAT_STRIDE = 56     # per instance: w2p0[12], (w2p1 - w2p0)[12], then the TRS
                      # decomposition of both w2p keyframes:
                      # T0[3] T1[3] q0[4] q1[4] S0[9] S1[9]
+IREC_STRIDE = 64     # an instance record: its imat row, then its prototype
+                     # root's walk word (int32 bits) at IMAT_STRIDE
 
 
 def _decompose_trs(m):
@@ -119,6 +122,12 @@ class InstanceBVH:
                        row-major, for the shading frame
     stack_need         stack entries the walk needs: top depth + 1
                        (RESTORE) + deepest prototype depth + 1
+    recs [R,16] f32    the kernel's walk records (traverse.walk_records),
+    root_word          the word its walk starts from,
+    irec [I,64] f32    its instance records: imat[i], then the walk word of
+                       iroot[i]; all derived at construction
+                       (`instance_records`), and
+    recs_ms            the derivation's time in ms (set-up)
     """
     metas: torch.Tensor
     nodes: torch.Tensor
@@ -132,12 +141,35 @@ class InstanceBVH:
     wlo: np.ndarray
     whi: np.ndarray
     stack_need: int
+    recs: torch.Tensor = None
+    root_word: int = 0
+    irec: torch.Tensor = None
+    recs_ms: float = 0.0
+
+    def __post_init__(self):
+        if self.recs is None:
+            t0 = time.perf_counter()
+            self.recs, self.root_word, self.irec = instance_records(
+                self.metas, self.nodes, self.imat, self.iroot)   # waits for the device
+            self.recs_ms = 1e3 * (time.perf_counter() - t0)
 
     def to(self, device) -> "InstanceBVH":
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def instance_records(metas, nodes, imat, iroot):
+    """The kernel's tables, derived from the instance world's -> (walk
+    records, root word, instance records [I,64] f32). Top-tree leaves keep
+    their ENTER words, so entering instance i reads one record: its walk
+    matrix (imat[i]) and its prototype root's walk word."""
+    recs, words = walk_records(metas, nodes)
+    irec = torch.zeros((iroot.shape[0], IREC_STRIDE), dtype=torch.int32, device=metas.device)
+    irec[:, :IMAT_STRIDE] = imat.contiguous().view(torch.int32)
+    irec[:, IMAT_STRIDE] = words[iroot.to(torch.int64)].to(torch.int32)
+    return recs, int(words[0]), irec.view(torch.float32)
 
 
 def _tree_metas(bvh, node_base, leaf_cnt, leaf_payload):
@@ -371,6 +403,8 @@ def instance_traverse_plain(ib: InstanceBVH, o, d, t_max, time, trs: bool,
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     pops = torch.zeros(n, dtype=torch.int32, device=dev)
     ovf = torch.zeros(n, dtype=torch.bool, device=dev)
+    if counts is not None:
+        counts.stack_height(sp)
 
     def push(lanes, spl, child, h):
         """Push child where h, in order; -> (new stack pointers, overflow)."""
@@ -448,6 +482,8 @@ def instance_traverse_plain(ib: InstanceBVH, o, d, t_max, time, trs: bool,
             spl[ii] = spi
             ovf[lni] |= ov1 | ov2
         sp[lane] = spl
+        if counts is not None:
+            counts.stack_height(spl)
 
     return t_best, _global_tri(ib, slot), b1, b2, inst, _iters(pops, ovf)
 
@@ -473,7 +509,9 @@ def _launch(ib: InstanceBVH, o, d, t_max, time, trs: bool):
             ("tris", ib.tris, torch.float32, (ib.tris.shape[0], 16)),
             ("order", ib.order, torch.int32, (ib.tris.shape[0],)),
             ("imat", ib.imat, torch.float32, (I, IMAT_STRIDE)),
-            ("iroot", ib.iroot, torch.int32, (I,))):
+            ("iroot", ib.iroot, torch.int32, (I,)),
+            ("recs", ib.recs, torch.float32, (ib.recs.shape[0], REC_FLOATS)),
+            ("irec", ib.irec, torch.float32, (I, IREC_STRIDE))):
         _check(name, x, dt, shp, dev)
     if ib.tris.shape[0] % LEAF_TRIS:
         raise ValueError("tris rows are not whole 8-triangle blocks")
@@ -491,8 +529,8 @@ def _launch(ib: InstanceBVH, o, d, t_max, time, trs: bool):
     if n == 0:
         return t, slot, b1, b2, inst, scratch[:0]
     _call("instance_traverse", "pbrt_instance_traverse",
-          [ib.metas, ib.nodes, ib.tris, ib.imat, ib.iroot, o, d, t_max, time],
-          [t, slot, b1, b2, inst, scratch], n, [int(trs)], dev)
+          [ib.recs, ib.tris, ib.irec, o, d, t_max, time],
+          [t, slot, b1, b2, inst, scratch], n, [int(trs), ib.root_word], dev)
     instance_traverse.launches += 1
     return t, _global_tri(ib, slot), b1, b2, inst, scratch[:g] | (scratch[g:] << 24)
 

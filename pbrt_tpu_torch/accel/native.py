@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import threading
 import time
@@ -24,7 +25,7 @@ CUDA_SOURCES = {name: CSRC / f"{name}.cu"
                 for name in ("bvh_traverse", "bvh4_traverse", "instance_traverse")}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCKS = {name: threading.Lock() for name in ("bvh_builder", *CUDA_SOURCES)}
 _LIBS: dict = {}
@@ -43,6 +44,7 @@ def _compile(cmd_head, src: Path, so: Path, timeout: float) -> None:
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
     if res.returncode != 0:
         raise RuntimeError(f"build failed: {' '.join(cmd)}\n{res.stderr}")
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, so)
 
 
@@ -76,3 +78,45 @@ def load_all(names) -> dict:
         return time.time() - t0
     with ThreadPoolExecutor(max(len(names), 1)) as ex:
         return dict(zip(names, ex.map(one, names)))
+
+
+def _kernel_name(mangled: str) -> str:
+    """A mangled kernel name -> "name" or "name<b,...>" (its bool template
+    arguments). Itanium mangling writes <length><name>, then I<args>E."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):   # a name may follow other digits
+            n = int(m.group()[k:])
+            name = mangled[m.end():m.end() + n]
+            if name.endswith("_kernel") and len(name) == n:
+                args = re.match(r"I((?:Lb[01]E)+)E", mangled[m.end() + n:])
+                return name + (f"<{','.join(re.findall(r'Lb([01])E', args.group(1)))}>"
+                               if args else "")
+    return mangled
+
+
+def kernel_resources(name: str) -> dict:
+    """Per kernel of a built CUDA library, what ptxas -v reported at its
+    build (kept beside it as lib<name>.log) -> {kernel: {"registers",
+    "spill_stores", "spill_loads", "stack_frame", "static_smem"}} (bytes
+    but registers); a kernel is named by its function and template
+    arguments, e.g. "instance_kernel<1>"."""
+    log = BUILD_DIR / f"lib{name}.log"
+    out, cur = {}, None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur].update(registers=int(m.group(1)), static_smem=int(sm.group(1)) if sm else 0)
+    return out

@@ -32,6 +32,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ FAR_SCALE = 1.00000024   # conservative slab far factor
 OVF_BIT = 1 << 24
 LEAF_TAG = 1 << 30   # 4-wide stack word: leaf block, cnt in bits 26-29
 PAYLOAD = 0x3FFFFFF
+REC_FLOATS = 16      # a walk record: 12 box floats, 2 child words, 2 spare
 
 # variant -> (slab lo*inv - o*inv (else (lo - o)*inv), occluder seed, b1/b2 out)
 VARIANTS = {"queue": (True, True, False), "all": (True, True, True),
@@ -65,6 +67,10 @@ class KernelBVH:
     order [L*8] i32   leaf slot -> original triangle id, -1 on padding
     seed  [8,16] f32  occluder seed: the 8 largest triangles
     seed_slots [16] i32  their slots; [8] holds the seed count
+    recs [R,16] f32   the "packet" kernel's walk records, derived from metas
+                      and nodes at construction (`walk_records`),
+    root_word         the word its walk starts from, and
+    recs_ms           the derivation's time in ms (set-up)
     """
     metas: torch.Tensor
     nodes: torch.Tensor
@@ -75,6 +81,16 @@ class KernelBVH:
     wlo: np.ndarray
     whi: np.ndarray
     max_depth: int
+    recs: torch.Tensor = None
+    root_word: int = 0
+    recs_ms: float = 0.0
+
+    def __post_init__(self):
+        if self.recs is None:
+            t0 = time.perf_counter()
+            self.recs, words = walk_records(self.metas, self.nodes)
+            self.root_word = int(words[0])   # waits for the device
+            self.recs_ms = 1e3 * (time.perf_counter() - t0)
 
     def to(self, device) -> "KernelBVH":
         return dataclasses.replace(self, **{
@@ -106,6 +122,30 @@ class KernelBVH4:
     def to(self, device) -> "KernelBVH4":
         return KernelBVH4(self.nodes4.to(device), self.meta4.to(device), self.axs4.to(device),
                           self.kb.to(device), self.stack_need)
+
+
+def walk_records(metas, nodes):
+    """The walk records of the redesigned kernels, derived from the meta
+    words and node boxes -> (recs [R,16] f32, each node's walk word [M]
+    i64; words[0] is the root's).
+
+    A node's walk word is its meta word (ax | cnt<<2 | payload<<6) with an
+    interior node's payload replaced by its record: the node's rank among
+    the interior nodes. Record r belongs to the r-th interior node i: its
+    children's boxes nodes[i, :12] in floats 0:12 and the walk words of its
+    children i + 1 and right[i] as int32 bits in floats 12 and 13. A popped
+    word then names the one load its visit needs: a leaf's block, or an
+    interior node's record with the words of both its children."""
+    m = metas.to(torch.int64)
+    interior = ((m >> 2) & 15) == 0
+    rec = torch.cumsum(interior.to(torch.int64), 0) - 1
+    words = torch.where(interior, (m & 3) | (rec << 6), m)
+    ids = torch.nonzero(interior).squeeze(1)
+    recs = torch.zeros((ids.numel(), REC_FLOATS), dtype=torch.int32, device=metas.device)
+    recs[:, :12] = nodes[ids, :12].contiguous().view(torch.int32)
+    recs[:, 12] = words[ids + 1].to(torch.int32)
+    recs[:, 13] = words[(m[ids] >> 6) & PAYLOAD].to(torch.int32)
+    return recs.view(torch.float32), words
 
 
 def node_depths(right: np.ndarray, cnts: np.ndarray) -> np.ndarray:
@@ -409,13 +449,13 @@ class WalkCounts:
     on the same rays (its bound) is computed from these. metas holds one
     word per table entry (ax | cnt<<2 | ...); boxes is the number of box
     tests per interior pop and node_bytes the bytes of an interior entry
-    beside its word."""
+    beside its word. max_stack is the most entries any ray's stack held."""
 
     def __init__(self, metas, boxes=2, node_bytes=48):
         self.metas = metas
         self.boxes, self.node_bytes = boxes, node_bytes
         self.seen = torch.zeros(metas.shape[0], dtype=torch.bool, device=metas.device)
-        self.interior = self.tri_tests = self.enters = 0
+        self.interior = self.tri_tests = self.enters = self.max_stack = 0
 
     @classmethod
     def for_bvh4(cls, kb4: KernelBVH4) -> "WalkCounts":
@@ -435,6 +475,11 @@ class WalkCounts:
         self.interior += int(interior.sum())
         self.tri_tests += int(leaf_cnt.sum())
         self.enters += int(enters)
+
+    def stack_height(self, sp):
+        """Note the stack heights sp [n] of the lanes after a step."""
+        if sp.numel():
+            self.max_stack = max(self.max_stack, int(sp.max()))
 
     def touched(self):
         """-> (interior nodes, leaf triangles, instance leaves) touched once
@@ -493,6 +538,8 @@ def _walk(kb, o, d, t_max, anyhit, counts, seed, bary, stack_size, expand):
     sp = torch.where(ah & (h.slot >= 0), 0, 1).to(torch.int64)
     pops = torch.zeros(n, dtype=torch.int32, device=dev)
     ovf = torch.zeros(n, dtype=torch.bool, device=dev)
+    if counts is not None:
+        counts.stack_height(sp)
 
     def push(lanes, spl, child, hit):
         """Push child where hit, in order -> (new stack pointers, overflow)."""
@@ -513,6 +560,8 @@ def _walk(kb, o, d, t_max, anyhit, counts, seed, bary, stack_size, expand):
         ahl = ah[lane]
         spl, ov = expand(word, rl, hl, ahl, lane, spl, push)
         ovf[lane] |= ov
+        if counts is not None:
+            counts.stack_height(spl)
         # any-hit lanes retire at their first hit
         spl = torch.where(ahl & (hl.slot >= 0), 0, spl)
         h.put(lane, hl)
@@ -672,13 +721,16 @@ def _launch(kb: KernelBVH, o, d, t_max, anyhit, variant="queue"):
     bary = VARIANTS[variant][2]
     out = [t, slot] + ([torch.empty(n, device=dev), torch.empty(n, device=dev)] if bary else [])
     if n > 0:
-        ins = [kb.metas, kb.nodes, kb.tris, kb.seed, kb.seed_slots, o, d, t_max, anyhit]
+        ins = [kb.metas, kb.nodes, kb.tris, kb.seed, kb.seed_slots]
+        rays = [o, d, t_max, anyhit]
         if bary:
-            _call("bvh_traverse", "pbrt_bvh_traverse_bary", ins, out + [scratch], n,
-                  [_BARY_IDS[variant]], dev)
+            if _BARY_IDS[variant] == 1:   # "block" and "packet" walk the records
+                _check("recs", kb.recs, torch.float32, (kb.recs.shape[0], REC_FLOATS), dev)
+            _call("bvh_traverse", "pbrt_bvh_traverse_bary", ins + [kb.recs] + rays,
+                  out + [scratch], n, [_BARY_IDS[variant], kb.root_word], dev)
             traverse.bary_launches[variant] += 1
         else:
-            _call("bvh_traverse", "pbrt_bvh_traverse", ins, out + [scratch], n, [], dev)
+            _call("bvh_traverse", "pbrt_bvh_traverse", ins + rays, out + [scratch], n, [], dev)
             traverse.launches += 1
     return (*out, scratch[:g] | (scratch[g:] << 24))
 

@@ -1,11 +1,14 @@
-// Shared device code of the BVH walks (bvh_traverse.cu, bvh4_traverse.cu):
-// the ray setup, the slab test in its two forms, the naive-shear watertight
-// triangle test, and the per-1024-ray-group iters reduction. Their plain
-// PyTorch versions are pbrt_tpu_torch/accel/traverse.py::_Rays and _iters;
-// the kernels must equal them bit for bit, so build with --fmad=false, keep
-// 1/x IEEE, and keep min/max NaN-propagating like torch.minimum/maximum
-// (fminf/fmaxf return the other operand, which would let an empty NaN box
-// of the 4-wide walk pass its slab test).
+// Shared device code of the BVH walks (bvh_traverse.cu, bvh4_traverse.cu,
+// instance_traverse.cu): the ray setup, the slab test in its two forms, the
+// naive-shear watertight triangle test, the per-1024-ray-group iters
+// reduction, and the parts of the redesigned walks (B4/B5 and B6): their
+// ray, the walk record, the stack, the visit that keeps the near child in a
+// register, and the leaf.
+// Their plain PyTorch versions are pbrt_tpu_torch/accel/traverse.py::_Rays,
+// _iters and walk_records; the kernels must equal them bit for bit, so
+// build with --fmad=false, keep 1/x IEEE, and keep min/max NaN-propagating
+// like torch.minimum/maximum (fminf/fmaxf return the other operand, which
+// would let an empty NaN box of the 4-wide walk pass its slab test).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,7 +18,12 @@ namespace bvh {
 
 constexpr int kLeafTris = 8;    // traverse.py LEAF_TRIS
 constexpr int kGroup = 1024;    // traverse.py GROUP
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // a block of the first-design walks (B1, B2, B3)
+// A block of the redesigned walks (B4/B5, B6): a small block frees its
+// registers as soon as its own two warps are done, and B6's 65 registers
+// (allocated as 72) fit 28 warps a SM in blocks of 64 against 24 in blocks
+// of 256 (PERF.md section 6).
+constexpr int kWalkThreads = 64;
 constexpr float kTiny = 1e-20f;
 
 __device__ __forceinline__ float nmin(float a, float b) {
@@ -40,11 +48,11 @@ struct Ray {
   bool neg[3];
 };
 
-__device__ __forceinline__ Ray make_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int i) {
+// The ray setup of origin o and direction d.
+__device__ __forceinline__ Ray derive(float ox, float oy, float oz,
+                                      float dx, float dy, float dz) {
   Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  r.ox = ox; r.oy = oy; r.oz = oz;
   r.ix = guard_inv(dx); r.iy = guard_inv(dy); r.iz = guard_inv(dz);
   r.oxi = r.ox * r.ix; r.oyi = r.oy * r.iy; r.ozi = r.oz * r.iz;
   float adx = fabsf(dx), ady = fabsf(dy), adz = fabsf(dz);
@@ -57,6 +65,11 @@ __device__ __forceinline__ Ray make_ray(const float* __restrict__ o,
   r.sy = -pick(dx, dy, dz, r.ky) * r.sz;
   r.neg[0] = dx < 0.0f; r.neg[1] = dy < 0.0f; r.neg[2] = dz < 0.0f;
   return r;
+}
+
+__device__ __forceinline__ Ray make_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int i) {
+  return derive(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
 }
 
 // kMulSub: slab distances as lo*inv - o*inv (B1, B2, B3), else as
@@ -175,6 +188,110 @@ __device__ __forceinline__ void group_iters(int i, int n, int pops, int ovf, int
       if (wovf) atomicOr(scratch + ng + g, 1);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The redesigned walks: B4/B5 (packet_kernel) and B6 (instance_kernel).
+// Each pop makes one dependent load (the popped word says what to load),
+// the near child stays in a register, blocks are kWalkThreads small, and
+// the leaf loop is serial: a shared-memory stack, loading all 8 rows first,
+// persistent warps and dynamic fetch were measured slower on the card
+// (PERF.md section 6).
+// ---------------------------------------------------------------------------
+
+// A walk word: ax | cnt<<2 | payload<<6. cnt 0: an interior node, payload
+// its walk record; cnt 1-8: a leaf, payload its 8-triangle block; cnt 15
+// (the instance walk): a top-tree leaf, payload its instance record.
+constexpr int kRecFloat4 = 4;   // a walk record: 16 floats, 64 bytes
+
+// A walk record (accel/traverse.py::walk_records): both children's boxes
+// (left lo,hi, right lo,hi) in floats 0:12 and both children's words in
+// 12:14, so a popped word names the one load its visit needs.
+struct Rec {
+  float4 a, b, c;
+  int left, right;
+};
+
+__device__ __forceinline__ Rec load_rec(const float4* __restrict__ recs, int rec) {
+  const float4* p = recs + (size_t)rec * kRecFloat4;
+  Rec x;
+  x.a = __ldg(p);
+  x.b = __ldg(p + 1);
+  x.c = __ldg(p + 2);
+  int2 w = __ldg(reinterpret_cast<const int2*>(p + 3));
+  x.left = w.x;
+  x.right = w.y;
+  return x;
+}
+
+// A walk's stack in the thread's local memory (L1-cached): cap entries
+// at base. Shared memory, entry-major, measured no faster on the card
+// (PERF.md section 6).
+struct Stack {
+  int* base;
+  int cap, sp;
+  __device__ __forceinline__ void push(int v, int& ovf) {
+    if (sp < cap) base[sp++] = v; else ovf = 1;
+  }
+  __device__ __forceinline__ int pop() { return base[--sp]; }
+};
+
+// The redesigned walks' ray: the setup plus neg as bits (bit k set where
+// the direction's k is < 0), so the near/far choice indexes no bool array.
+// The first-design walks keep Ray without it: they hold their Ray in local
+// memory, and the larger one grew B3's frame from 448 to 464 bytes and
+// changed their machine code.
+struct WalkRay : Ray {
+  int negm;
+};
+
+__device__ __forceinline__ WalkRay walk_ray(float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+  WalkRay w;
+  static_cast<Ray&>(w) = derive(ox, oy, oz, dx, dy, dz);
+  w.negm = (int)w.neg[0] | ((int)w.neg[1] << 1) | ((int)w.neg[2] << 2);
+  return w;
+}
+
+// Visit an interior record with the (lo - o)*inv slab, keeping the near
+// child in a register: push the far child where hit, then take the near
+// one as the next word where hit and the stack has room for it, as pushing
+// and popping it would do (the same pops, order and overflows) -> whether
+// w now holds the next word.
+__device__ __forceinline__ bool visit_next(const WalkRay& r, const Rec& x, int ax, float t_best,
+                                           Stack& st, int& ovf, int& w) {
+  bool hl = slab<false>(r, x.a.x, x.a.y, x.a.z, x.a.w, x.b.x, x.b.y, t_best);
+  bool hr = slab<false>(r, x.b.z, x.b.w, x.c.x, x.c.y, x.c.z, x.c.w, t_best);
+  bool swap = (r.negm >> ax) & 1;
+  int near = swap ? x.right : x.left, far = swap ? x.left : x.right;
+  bool h_near = swap ? hr : hl, h_far = swap ? hl : hr;
+  if (h_far) st.push(far, ovf);
+  if (h_near) {
+    if (st.sp < st.cap) { w = near; return true; }
+    ovf = 1;
+  }
+  return false;
+}
+
+// The redesigned walks' leaf: the first cnt of 8 triangle rows of block
+// blk, in order, as test_leaf tests them -> whether any hit. The hit's
+// stores stay inside the test's branch: through test_tri's return value B6
+// compiled to 69 registers and ran 19% slower.
+template <bool kBary>
+__device__ __forceinline__ bool walk_leaf(const Ray& r, const float4* __restrict__ tris,
+                                          int blk, int cnt, bool any, Hit& h) {
+  const float4* rows = tris + (size_t)blk * kLeafTris * 4;
+  bool hit = false;
+  for (int j = 0; j < kLeafTris && j < cnt; ++j) {
+    float th, u, v;
+    if (tri_test<kBary>(r, rows + 4 * j, h.t, th, u, v)) {
+      h.t = any ? 0.0f : th;
+      h.slot = blk * kLeafTris + j;
+      if (kBary) { h.b1 = u; h.b2 = v; }
+      hit = true;
+    }
+  }
+  return hit;
 }
 
 }  // namespace bvh

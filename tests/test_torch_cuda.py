@@ -267,3 +267,43 @@ def test_ply_render_goes_through_the_packet_kernel(tmp_path):
     assert np.all(np.isfinite(a)) and a.sum() > 0
     near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
     assert near >= 0.99 and abs(a.mean() - c.mean()) <= 0.01 * abs(c.mean())
+
+
+def _resident_threads():
+    p = torch.cuda.get_device_properties(0)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+@pytest.mark.parametrize("size", ["empty", "ragged", "refill"])
+@pytest.mark.parametrize("kernel", ["packet", "instance"])
+def test_redesigned_kernel_launch_sizes(kernel, size):
+    """The "packet" (B4/B5) and instance (B6) kernels at 0 rays (no launch),
+    at a ragged 4,099 rays (not a multiple of 32 or of the block), and at 8x
+    the card's resident threads plus 13 (many waves of blocks): every
+    output bit-equal to the plain walk, iters included."""
+    needs_cuda()
+    dev = torch.device("cuda")
+    n = {"empty": 0, "ragged": 4099, "refill": 8 * _resident_threads() + 13}[size]
+    if kernel == "packet":
+        kb = build_bench_scene(False, dev).data.bvh
+        o, d = (torch.as_tensor(a, device=dev) for a in rays_at_knot(n, seed=36))
+        ah = (torch.arange(n, device=dev) % 2).to(torch.uint8)
+        args = (kb, o, d, torch.full((n,), float("inf"), device=dev), ah)
+        before = T.traverse.bary_launches["packet"]
+        got = T.traverse(*args, variant="packet")
+        launches = T.traverse.bary_launches["packet"] - before
+        want = T.traverse_plain(*args, variant="packet")
+    else:
+        args = (build_instanced_bench_scene(False, dev).data.ibvh, *_grid_rays(n, 37, dev), False)
+        before = I.instance_traverse.launches
+        got = I.instance_traverse(*args)
+        launches = I.instance_traverse.launches - before
+        want = I.instance_traverse_plain(*args)
+    torch.cuda.synchronize()
+    assert launches == (n > 0)
+    assert got[1].shape == (n,) and got[-1].shape == (-(-n // T.GROUP),)
+    if n:
+        assert int((got[1] >= 0).sum()) > n // 10
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not bool(torch.any(got[-1] & T.OVF_BIT))

@@ -12,13 +12,16 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_helpers import pallas_tables
+from test_torch_traverse import decode_walk_tables
 
 from pbrt_tpu.accel.pallas_instance import (intersect_instances,
                                             trs_matrices_at as j_trs_matrices_at)
 from pbrt_tpu.scene import load_scene_string as j_load_scene_string
 from pbrt_tpu.scene.intersect import intersect as j_intersect
+from pbrt_tpu_torch.accel import instance as I
 from pbrt_tpu_torch.accel.instance import (IMAT_STRIDE, instance_traverse,
                                            trs_matrices_at)
+from pbrt_tpu_torch.accel.traverse import WalkCounts
 from pbrt_tpu_torch.render import render_sampler_integrator
 from pbrt_tpu_torch.scene import load_scene_string
 from pbrt_tpu_torch.scene.intersect import intersect
@@ -114,6 +117,41 @@ def test_pack_instance_world_matches_reference(name):
         assert getattr(cs.flags, f) == getattr(jcs.flags, f), f
     np.testing.assert_array_equal(cs.data.tri_attr.numpy(), np.asarray(jcs.data.tri_attr))
     np.testing.assert_array_equal(cs.data.world_center, np.asarray(jcs.data.world_center))
+
+
+@pytest.mark.parametrize("name", ["instanced", "rotated"])
+def test_instance_records_decode_to_tables(name):
+    """The kernel's walk records decode to metas and nodes (top tree and
+    prototypes), and instance record i holds imat[i] and the walk word of
+    iroot[i]."""
+    ib = load_scene_string(SCENES[name], device="cpu").data.ibvh
+    irec = ib.irec.numpy()
+    np.testing.assert_array_equal(irec[:, :IMAT_STRIDE], ib.imat.numpy())
+    roots = {0: ib.root_word}
+    for i, (node, word) in enumerate(zip(ib.iroot.tolist(), irec[:, IMAT_STRIDE].view(np.int32))):
+        assert roots.setdefault(node, int(word)) == word, i
+    named = decode_walk_tables(ib.recs, roots, ib.metas, ib.nodes)
+    assert sorted(named) == list(range(ib.metas.shape[0]))
+
+
+def test_kernel_stack_holds_the_plain_walk():
+    """The packer's bound on the walk's stack (top depth + 1 + the deepest
+    prototype's depth + 1) holds the most entries the plain walk held on
+    1,024 shell rays of the static bench instance world (64 knots), and
+    fits the kernel's stack of STACK entries."""
+    from pbrt_tpu_torch.scene.bench import build_instanced_bench_scene
+    ib = build_instanced_bench_scene(False, "cpu").data.ibvh
+    rng = np.random.default_rng(44)
+    o = rng.normal(size=(1024, 3))
+    o = 12.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    o[:, 1] = np.abs(o[:, 1])
+    d = rng.uniform([-6.0, -1.0, -6.0], [6.0, 1.2, 6.0], (1024, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    counts = WalkCounts(ib.metas)
+    I.instance_traverse_plain(ib, *(torch.as_tensor(a, dtype=torch.float32) for a in (o, d)),
+                              torch.full((1024,), float("inf")), torch.zeros(1024), False, counts)
+    assert counts.enters > 0
+    assert 4 <= counts.max_stack <= ib.stack_need <= I.STACK
 
 
 def _walk_close(got, want, hit_t, t_tol):

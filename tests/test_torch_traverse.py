@@ -74,6 +74,38 @@ def test_pack_matches_reference(knot_tables):
     assert 0 < kb.max_depth < T.STACK
 
 
+def decode_walk_tables(recs, roots, metas, nodes):
+    """Decode the walk records back to the tables they came from: record r
+    is the r-th interior node i, its boxes are nodes[i, :12], and the words
+    of its children i + 1 and right[i], like those of the roots ({node:
+    word}), are their meta words (a leaf) or carry their axis and name
+    their records (interior). -> {node: its walk word}, every node a record
+    or roots names."""
+    metas, nodes = metas.numpy().astype(np.int64), nodes.numpy()
+    cnt = (metas >> 2) & 15
+    ids = np.nonzero(cnt == 0)[0]
+    r = recs.numpy()
+    assert r.shape == (len(ids), 16) and np.array_equal(r[:, :12], nodes[ids, :12])
+    words = r[:, 12:14].view(np.int32).astype(np.int64)
+    named = dict(roots)
+    for k, i in enumerate(ids):
+        named[i + 1], named[int(metas[i] >> 6) & T.PAYLOAD] = words[k]
+    for node, w in named.items():
+        if cnt[node] > 0:
+            assert w == metas[node]
+        else:
+            assert (w & 63) == (metas[node] & 3) and ids[w >> 6] == node
+    return named
+
+
+def test_walk_records_decode_to_tables(knot_tables):
+    """The packet kernel's walk records name every node once, and decode to
+    metas and nodes."""
+    kb = knot_tables[0]
+    named = decode_walk_tables(kb.recs, {0: kb.root_word}, kb.metas, kb.nodes)
+    assert sorted(named) == list(range(kb.metas.shape[0]))
+
+
 def test_pack4_matches_reference(knot_tables):
     """The 4-wide collapse: boxes (NaN on empty slots), slot words and axis
     words bit-equal to _pack_bvh4's; the walk's stack need is counted."""
@@ -181,6 +213,42 @@ def test_plain_walk_matches_xla_walk(bench_tables):
         assert np.all(np.abs(np.asarray(t_ref_tri) - t[lanes]) <= 1e-6 * np.maximum(1.0, t[lanes]))
     assert not np.any(iters & T.OVF_BIT)
     assert iters.shape == (3,) and np.all(iters > 0)
+
+
+@pytest.mark.parametrize("variant", ["packet", "queue"])
+def test_kernel_stack_holds_the_plain_walk(bench_tables, variant):
+    """The packer's bound on the walk's stack, depth + 1, holds the most
+    entries the plain walk held on 2,000 random rays of the small bench knot
+    (half of them any-hit), seedless ("packet") or seeded ("queue"), and
+    fits the kernels' stack of STACK entries."""
+    _, kb = bench_tables
+    o, d, tm, ah = (torch.as_tensor(a) for a in _rays(2000, seed=8))
+    counts = T.WalkCounts(kb.metas)
+    T.traverse_plain(kb, o, d, tm, ah, counts, variant)
+    assert 2 <= counts.max_stack <= kb.max_depth + 1 <= T.STACK
+
+
+def test_kernel_resources_reads_the_ptxas_report(tmp_path, monkeypatch):
+    """The registers, spills and shared memory chip_smoke.py prints come
+    from ptxas -v's report kept beside a library; kernels are named by
+    their demangled name and bool template arguments."""
+    from pbrt_tpu_torch.accel import native
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    ns = "_ZN53_GLOBAL__N__0fe0dbb0_20_instance_traverse_cu_18ee9087"
+    (tmp_path / "libinstance_traverse.log").write_text(
+        f"ptxas info    : Compiling entry function '{ns}15instance_kernelILb1EEEvPK6float4' "
+        "for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, 1024 bytes smem, 480 bytes cmem[0]\n"
+        f"ptxas info    : Compiling entry function '{ns}13packet_kernelEPK6float4' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 47 registers, 480 bytes cmem[0]\n")
+    assert native.kernel_resources("instance_traverse") == {
+        "instance_kernel<1>": dict(stack_frame=8, spill_stores=4, spill_loads=8, registers=80,
+                                   static_smem=1024),
+        "packet_kernel": dict(stack_frame=0, spill_stores=0, spill_loads=0, registers=47,
+                              static_smem=0)}
+    assert native.kernel_resources("bvh4_traverse") == {}
 
 
 def test_far_miss_rays_retire_at_root(bench_tables):
