@@ -6,8 +6,10 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      csrc/bvh4_traverse.cu) and the two-level instance traversal
      (csrc/instance_traverse.cu), one nvcc each, started together; print
      each kernel's registers, spill bytes, stack frame and shared memory
-     as ptxas reports them;
-  3. hold the kernel against its plain PyTorch walk on the large bench knot
+     as ptxas reports them (walk_kernel<1,1,0> is B1, <1,1,1> B2 and
+     <0,0,1> B4/B5; traverse4_kernel B3; instance_kernel<0>/<1> B6);
+  3. hold B1 (walk_kernel over the walk records) against its plain PyTorch
+     walk on the large bench knot
      at the main path's shapes (131,072 camera rays; a 262,144-ray pair
      launch with an any-hit half), and on both bench knots with 100,003
      random rays: bit-equal t and slot on closest-hit rays, equal hit
@@ -68,6 +70,7 @@ is {"ok": true, "device": {...}}.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -86,6 +89,7 @@ from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench
                                         build_ply_bench_scene)
 from pbrt_tpu_torch.scene.intersect import kernel_bary
 
+# each kernel of the JSON record: the TPU kernel it replaces and its source
 REPLACES = {"bvh_traverse": "pbrt_tpu/accel/pallas_traverse.py:1001",
             "bvh_traverse_all": "pbrt_tpu/accel/pallas_traverse.py:698",
             "bvh4_traverse": "pbrt_tpu/accel/pallas_traverse.py:1330",
@@ -101,8 +105,24 @@ PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # ray setup; one child-box slab test; one triangle test; moving a ray into
 # prototype space (3x4 matrix on o and d); a static instance's walk matrix
 OPS = {"setup": 20, "box": 26, "tri": 51, "xform": 33, "lerp": 24}
-# the port's kernel functions, as torch.profiler names their launches
-PORT_KERNELS = ("traverse_kernel", "packet_kernel", "traverse4_kernel", "instance_kernel")
+# the port's kernel functions, this tree's and those of earlier trees that
+# time_kernels.py times beside it (traverse_kernel<1,1,b>: B1 and B2 before
+# walk_kernel; packet_kernel: B4/B5 before walk_kernel<0,0,1>)
+PORT_KERNELS = ("walk_kernel", "traverse_kernel", "packet_kernel", "traverse4_kernel",
+                "instance_kernel")
+
+
+def kernel_of(function):
+    """A port kernel's name in the JSON record ("bvh_traverse", ...) from
+    its demangled function name as torch.profiler reports it, or None."""
+    m = re.search(r"::(\w+_kernel)(?:<([^>]*)>)?", function)
+    if m is None or m.group(1) not in PORT_KERNELS:
+        return None
+    flags = tuple(a.strip() in ("true", "1", "(bool)1") for a in (m.group(2) or "").split(","))
+    return {"traverse4_kernel": "bvh4_traverse", "instance_kernel": "instance_traverse",
+            "packet_kernel": "bvh_traverse_packet"}.get(m.group(1)) or {
+        (True, True, False): "bvh_traverse", (True, True, True): "bvh_traverse_all",
+        (False, False, True): "bvh_traverse_packet"}.get(flags)
 
 
 def card_line():
@@ -340,8 +360,8 @@ def bound_ms(counts, n, ray_bytes, inst_bytes=0, enter_ops=0, fixed_bytes=0):
 
 def profile_render(cs, opts):
     """One render under torch.profiler -> (device ms, device kernel count,
-    the 5 ops with the most device time, {port kernel function: its device
-    ms in the render})."""
+    the 5 ops with the most device time, {port kernel (`kernel_of`): its
+    device ms in the render})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         render_sampler_integrator(cs, opts)
@@ -353,9 +373,9 @@ def profile_render(cs, opts):
     ops = sorted((e for e in avgs if e.device_type != cuda),
                  key=lambda e: e.self_device_time_total, reverse=True)[:5]
     top = ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f}" for e in ops)
-    mine = dict.fromkeys(PORT_KERNELS, 0.0)
+    mine = dict.fromkeys(REPLACES, 0.0)
     for e in avgs:
-        name = next((k for k in PORT_KERNELS if f"::{k}" in e.key), None)
+        name = kernel_of(e.key)
         if e.device_type == cuda and name:
             mine[name] += e.self_device_time_total / 1e3
     return busy, len(kernels), top, mine
@@ -394,8 +414,8 @@ def render_instanced(animated, dev, card):
     busy, n_kern, top, mine = profile_render(cs, opts)
     print(f"instanced render ({label}) under torch.profiler: {n_kern} device kernels, "
           f"{busy:.1f} ms device time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; "
-          f"instance kernel {mine['instance_kernel']:.3f} ms, B1 "
-          f"{mine['traverse_kernel']:.3f} ms; top device ops (ms): {top}  [{card}]")
+          f"instance kernel {mine['instance_traverse']:.3f} ms, B1 "
+          f"{mine['bvh_traverse']:.3f} ms; top device ops (ms): {top}  [{card}]")
 
     b, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, dev, crop), crop)
     c, _, _ = render_sampler_integrator(build_instanced_bench_scene(animated, "cpu", crop), crop)
@@ -514,7 +534,7 @@ def main():
     busy, n_kern, top, mine = profile_render(cs, opts)
     print(f"large render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device "
           f"time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; B1 "
-          f"{mine['traverse_kernel']:.3f} ms; top device ops (ms): {top}  [{card}]")
+          f"{mine['bvh_traverse']:.3f} ms; top device ops (ms): {top}  [{card}]")
 
     crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
     a, _, _ = render_sampler_integrator(build_bench_scene(True, dev, crop), crop)
@@ -651,7 +671,7 @@ def main():
     busy, n_kern, top, mine = profile_render(cs_p, opts)
     print(f"PLY render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device time, "
           f"{100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; packet kernel "
-          f"{mine['packet_kernel']:.3f} ms; top device ops (ms): {top}  [{card}]")
+          f"{mine['bvh_traverse_packet']:.3f} ms; top device ops (ms): {top}  [{card}]")
     b, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, dev, options=crop),
                                         crop)
     c, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, "cpu", options=crop),

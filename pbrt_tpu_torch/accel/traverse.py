@@ -24,8 +24,9 @@ the port has one walk with three switches (VARIANTS):
 collapse of the same tree.
 
 `traverse` and `traverse4` take the plain versions for CPU tensors only.
-For CUDA tensors they launch csrc/bvh_traverse.cu or csrc/bvh4_traverse.cu
-or raise; nothing falls back.
+For CUDA tensors they launch csrc/bvh_traverse.cu (every 2-wide variant
+walks the records of `walk_records` from `KernelBVH.root_word`) or
+csrc/bvh4_traverse.cu, or raise; nothing falls back.
 """
 from __future__ import annotations
 
@@ -67,9 +68,9 @@ class KernelBVH:
     order [L*8] i32   leaf slot -> original triangle id, -1 on padding
     seed  [8,16] f32  occluder seed: the 8 largest triangles
     seed_slots [16] i32  their slots; [8] holds the seed count
-    recs [R,16] f32   the "packet" kernel's walk records, derived from metas
+    recs [R,16] f32   the 2-wide kernels' walk records, derived from metas
                       and nodes at construction (`walk_records`),
-    root_word         the word its walk starts from, and
+    root_word         the word their walk starts from, and
     recs_ms           the derivation's time in ms (set-up)
     """
     metas: torch.Tensor
@@ -675,15 +676,14 @@ def _check(name, x, dtype, shape, device):
 
 
 def _check_rays(kb: KernelBVH, o, d, t_max, anyhit):
-    """The checks every BVH kernel's wrapper makes before it launches."""
+    """The checks every BVH kernel's wrapper makes before it launches: the
+    rays, the leaf blocks and the occluder seed."""
     n = o.shape[0]
     dev = o.device
     for name, x, dt, shp in (
             ("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
             ("t_max", t_max, torch.float32, (n,)),
             ("anyhit", anyhit, torch.uint8, (n,)),
-            ("metas", kb.metas, torch.int32, (kb.metas.shape[0],)),
-            ("nodes", kb.nodes, torch.float32, (kb.metas.shape[0], 16)),
             ("tris", kb.tris, torch.float32, (kb.tris.shape[0], 16)),
             ("seed", kb.seed, torch.float32, (LEAF_TRIS, 16)),
             ("seed_slots", kb.seed_slots, torch.int32, (16,))):
@@ -710,6 +710,7 @@ def _call(lib, fn_name, ins, outs, n, ints, dev):
 
 def _launch(kb: KernelBVH, o, d, t_max, anyhit, variant="queue"):
     _check_rays(kb, o, d, t_max, anyhit)
+    _check("recs", kb.recs, torch.float32, (kb.recs.shape[0], REC_FLOATS), o.device)
     if kb.max_depth + 1 > STACK:
         raise ValueError(f"BVH depth {kb.max_depth} exceeds the kernel stack")
     n = o.shape[0]
@@ -721,16 +722,14 @@ def _launch(kb: KernelBVH, o, d, t_max, anyhit, variant="queue"):
     bary = VARIANTS[variant][2]
     out = [t, slot] + ([torch.empty(n, device=dev), torch.empty(n, device=dev)] if bary else [])
     if n > 0:
-        ins = [kb.metas, kb.nodes, kb.tris, kb.seed, kb.seed_slots]
-        rays = [o, d, t_max, anyhit]
+        ins = [kb.recs, kb.tris, kb.seed, kb.seed_slots, o, d, t_max, anyhit]
         if bary:
-            if _BARY_IDS[variant] == 1:   # "block" and "packet" walk the records
-                _check("recs", kb.recs, torch.float32, (kb.recs.shape[0], REC_FLOATS), dev)
-            _call("bvh_traverse", "pbrt_bvh_traverse_bary", ins + [kb.recs] + rays,
-                  out + [scratch], n, [_BARY_IDS[variant], kb.root_word], dev)
+            _call("bvh_traverse", "pbrt_bvh_traverse_bary", ins, out + [scratch], n,
+                  [_BARY_IDS[variant], kb.root_word], dev)
             traverse.bary_launches[variant] += 1
         else:
-            _call("bvh_traverse", "pbrt_bvh_traverse", ins + rays, out + [scratch], n, [], dev)
+            _call("bvh_traverse", "pbrt_bvh_traverse", ins, out + [scratch], n,
+                  [kb.root_word], dev)
             traverse.launches += 1
     return (*out, scratch[:g] | (scratch[g:] << 24))
 

@@ -1,9 +1,9 @@
 // Shared device code of the BVH walks (bvh_traverse.cu, bvh4_traverse.cu,
 // instance_traverse.cu): the ray setup, the slab test in its two forms, the
 // naive-shear watertight triangle test, the per-1024-ray-group iters
-// reduction, and the parts of the redesigned walks (B4/B5 and B6): their
-// ray, the walk record, the stack, the visit that keeps the near child in a
-// register, and the leaf.
+// reduction, and the parts of the redesigned walks (B1, B2, B4/B5 and B6):
+// their ray, the walk record, the stack, the visit that keeps the near child
+// in a register, and the leaf.
 // Their plain PyTorch versions are pbrt_tpu_torch/accel/traverse.py::_Rays,
 // _iters and walk_records; the kernels must equal them bit for bit, so
 // build with --fmad=false, keep 1/x IEEE, and keep min/max NaN-propagating
@@ -18,8 +18,8 @@ namespace bvh {
 
 constexpr int kLeafTris = 8;    // traverse.py LEAF_TRIS
 constexpr int kGroup = 1024;    // traverse.py GROUP
-constexpr int kThreads = 256;      // a block of the first-design walks (B1, B2, B3)
-// A block of the redesigned walks (B4/B5, B6): a small block frees its
+constexpr int kThreads = 256;      // a block of the first-design walk (B3)
+// A block of the redesigned walks (B1, B2, B4/B5, B6): a small block frees its
 // registers as soon as its own two warps are done, and B6's 65 registers
 // (allocated as 72) fit 28 warps a SM in blocks of 64 against 24 in blocks
 // of 256 (PERF.md section 6).
@@ -191,7 +191,7 @@ __device__ __forceinline__ void group_iters(int i, int n, int pops, int ovf, int
 }
 
 // ---------------------------------------------------------------------------
-// The redesigned walks: B4/B5 (packet_kernel) and B6 (instance_kernel).
+// The redesigned walks: B1, B2, B4/B5 (walk_kernel) and B6 (instance_kernel).
 // Each pop makes one dependent load (the popped word says what to load),
 // the near child stays in a register, blocks are kWalkThreads small, and
 // the leaf loop is serial: a shared-memory stack, loading all 8 rows first,
@@ -238,9 +238,9 @@ struct Stack {
 
 // The redesigned walks' ray: the setup plus neg as bits (bit k set where
 // the direction's k is < 0), so the near/far choice indexes no bool array.
-// The first-design walks keep Ray without it: they hold their Ray in local
-// memory, and the larger one grew B3's frame from 448 to 464 bytes and
-// changed their machine code.
+// The first-design walk (B3) keeps Ray without it: it holds its Ray in
+// local memory, and the larger one grew its frame from 448 to 464 bytes and
+// changed its machine code.
 struct WalkRay : Ray {
   int negm;
 };
@@ -253,15 +253,16 @@ __device__ __forceinline__ WalkRay walk_ray(float ox, float oy, float oz,
   return w;
 }
 
-// Visit an interior record with the (lo - o)*inv slab, keeping the near
-// child in a register: push the far child where hit, then take the near
-// one as the next word where hit and the stack has room for it, as pushing
-// and popping it would do (the same pops, order and overflows) -> whether
-// w now holds the next word.
+// Visit an interior record with the slab of kMulSub (the seedless walks'
+// (lo - o)*inv by default), keeping the near child in a register: push the
+// far child where hit, then take the near one as the next word where hit
+// and the stack has room for it, as pushing and popping it would do (the
+// same pops, order and overflows) -> whether w now holds the next word.
+template <bool kMulSub = false>
 __device__ __forceinline__ bool visit_next(const WalkRay& r, const Rec& x, int ax, float t_best,
                                            Stack& st, int& ovf, int& w) {
-  bool hl = slab<false>(r, x.a.x, x.a.y, x.a.z, x.a.w, x.b.x, x.b.y, t_best);
-  bool hr = slab<false>(r, x.b.z, x.b.w, x.c.x, x.c.y, x.c.z, x.c.w, t_best);
+  bool hl = slab<kMulSub>(r, x.a.x, x.a.y, x.a.z, x.a.w, x.b.x, x.b.y, t_best);
+  bool hr = slab<kMulSub>(r, x.b.z, x.b.w, x.c.x, x.c.y, x.c.z, x.c.w, t_best);
   bool swap = (r.negm >> ax) & 1;
   int near = swap ? x.right : x.left, far = swap ? x.left : x.right;
   bool h_near = swap ? hr : hl, h_far = swap ? hl : hr;

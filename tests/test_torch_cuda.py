@@ -18,11 +18,13 @@ from torch_port_helpers import needs_cuda, rays_at_grid, rays_at_knot
 
 from pbrt_tpu_torch.accel import instance as I
 from pbrt_tpu_torch.accel import traverse as T
+from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
 from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench_scene,
                                         build_ply_bench_scene)
 from pbrt_tpu_torch.scene.intersect import kernel_bary
+from pbrt_tpu_torch.shapes.triangle import make_knot_mesh
 
 
 def _launch_rays(cs, dev):
@@ -274,25 +276,33 @@ def _resident_threads():
     return p.multi_processor_count * p.max_threads_per_multi_processor
 
 
+def _walk_launch(kb, n, variant, dev):
+    """One 2-wide kernel launch of n rays at the knot, every other one
+    any-hit -> (its outputs, its launches, the plain walk's outputs)."""
+    o, d = (torch.as_tensor(a, device=dev) for a in rays_at_knot(n, seed=36))
+    ah = (torch.arange(n, device=dev) % 2).to(torch.uint8)
+    args = (kb, o, d, torch.full((n,), float("inf"), device=dev), ah)
+    count = lambda: T.traverse.launches if variant == "queue" else \
+        T.traverse.bary_launches[variant]
+    before = count()
+    got = T.traverse(*args, variant=variant)
+    launches = count() - before
+    return got, launches, T.traverse_plain(*args, variant=variant)
+
+
 @pytest.mark.parametrize("size", ["empty", "ragged", "refill"])
-@pytest.mark.parametrize("kernel", ["packet", "instance"])
+@pytest.mark.parametrize("kernel", ["queue", "all", "packet", "instance"])
 def test_redesigned_kernel_launch_sizes(kernel, size):
-    """The "packet" (B4/B5) and instance (B6) kernels at 0 rays (no launch),
-    at a ragged 4,099 rays (not a multiple of 32 or of the block), and at 8x
-    the card's resident threads plus 13 (many waves of blocks): every
-    output bit-equal to the plain walk, iters included."""
+    """The "queue" (B1), "all" (B2), "packet" (B4/B5) and instance (B6)
+    kernels at 0 rays (no launch), at a ragged 4,099 rays (not a multiple of
+    32 or of the block), and at 8x the card's resident threads plus 13 (many
+    waves of blocks): every output bit-equal to the plain walk, iters
+    included."""
     needs_cuda()
     dev = torch.device("cuda")
     n = {"empty": 0, "ragged": 4099, "refill": 8 * _resident_threads() + 13}[size]
-    if kernel == "packet":
-        kb = build_bench_scene(False, dev).data.bvh
-        o, d = (torch.as_tensor(a, device=dev) for a in rays_at_knot(n, seed=36))
-        ah = (torch.arange(n, device=dev) % 2).to(torch.uint8)
-        args = (kb, o, d, torch.full((n,), float("inf"), device=dev), ah)
-        before = T.traverse.bary_launches["packet"]
-        got = T.traverse(*args, variant="packet")
-        launches = T.traverse.bary_launches["packet"] - before
-        want = T.traverse_plain(*args, variant="packet")
+    if kernel != "instance":
+        got, launches, want = _walk_launch(build_bench_scene(False, dev).data.bvh, n, kernel, dev)
     else:
         args = (build_instanced_bench_scene(False, dev).data.ibvh, *_grid_rays(n, 37, dev), False)
         before = I.instance_traverse.launches
@@ -307,3 +317,22 @@ def test_redesigned_kernel_launch_sizes(kernel, size):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert not bool(torch.any(got[-1] & T.OVF_BIT))
+
+
+@pytest.mark.parametrize("variant", ["queue", "all", "packet"])
+def test_walk_from_a_leaf_root(variant):
+    """A tree of 8 triangles is one leaf: no walk records, and the kernel's
+    walk starts on the leaf's word. Every output of 4,099 rays, half of them
+    any-hit, bit-equal to the plain walk, iters included."""
+    needs_cuda()
+    dev = torch.device("cuda")
+    m = make_knot_mesh(2, 2, 0.45)
+    tp = m.p[m.indices]
+    kb = T.pack_kernel_bvh(build_bvh(tp.min(1), tp.max(1)), tp[:, 0], tp[:, 1], tp[:, 2],
+                           device=dev)
+    assert kb.recs.shape[0] == 0 and kb.root_word == int(kb.metas[0]) and kb.max_depth == 0
+    got, launches, want = _walk_launch(kb, 4099, variant, dev)
+    torch.cuda.synchronize()
+    assert launches == 1 and int((got[1] >= 0).sum()) > 50
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

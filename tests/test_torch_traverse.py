@@ -106,6 +106,18 @@ def test_walk_records_decode_to_tables(knot_tables):
     assert sorted(named) == list(range(kb.metas.shape[0]))
 
 
+def test_walk_records_of_a_leaf_root():
+    """A tree of at most 8 triangles is one leaf: no walk records, and the
+    walk starts on the leaf's meta word."""
+    tp, lo, hi = _knot(2, 2)
+    kb = T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2])
+    assert kb.metas.shape[0] == 1 and int(kb.metas[0] >> 2) & 15 == tp.shape[0] == 8
+    assert kb.recs.shape == (0, T.REC_FLOATS) and kb.recs.dtype == torch.float32
+    assert kb.root_word == int(kb.metas[0])
+    assert decode_walk_tables(kb.recs, {0: kb.root_word}, kb.metas, kb.nodes) == {
+        0: kb.root_word}
+
+
 def test_pack4_matches_reference(knot_tables):
     """The 4-wide collapse: boxes (NaN on empty slots), slot words and axis
     words bit-equal to _pack_bvh4's; the walk's stack need is counted."""
@@ -215,12 +227,12 @@ def test_plain_walk_matches_xla_walk(bench_tables):
     assert iters.shape == (3,) and np.all(iters > 0)
 
 
-@pytest.mark.parametrize("variant", ["packet", "queue"])
+@pytest.mark.parametrize("variant", ["packet", "queue", "all"])
 def test_kernel_stack_holds_the_plain_walk(bench_tables, variant):
     """The packer's bound on the walk's stack, depth + 1, holds the most
     entries the plain walk held on 2,000 random rays of the small bench knot
-    (half of them any-hit), seedless ("packet") or seeded ("queue"), and
-    fits the kernels' stack of STACK entries."""
+    (half of them any-hit), seedless ("packet") or seeded ("queue", "all"),
+    and fits the kernels' stack of STACK entries."""
     _, kb = bench_tables
     o, d, tm, ah = (torch.as_tensor(a) for a in _rays(2000, seed=8))
     counts = T.WalkCounts(kb.metas)
@@ -298,11 +310,13 @@ def test_launch_rejects_what_the_kernel_cannot_take(bench_tables, bad, err):
 @pytest.mark.parametrize("bad,err", [
     ("unknown_variant", ValueError), ("packet_d_float64", TypeError),
     ("bvh4_nodes_shape", ValueError), ("bvh4_meta_dtype", TypeError),
-    ("bvh4_stack", ValueError), ("bvh4_leaf_root", ValueError)])
+    ("bvh4_stack", ValueError), ("bvh4_leaf_root", ValueError),
+    ("queue_recs_shape", ValueError), ("queue_recs_dtype", TypeError),
+    ("all_recs_shape", ValueError), ("all_recs_dtype", TypeError)])
 def test_new_walks_reject_what_their_kernels_cannot_take(bench_tables, bad, err):
-    """The with-barycentrics and 4-wide wrappers check before they build or
-    launch, so their refusals are exercised here on CPU tensors, as is the
-    4-wide packer's."""
+    """The with-barycentrics and 4-wide wrappers, and every 2-wide walk's
+    check of its walk records, run before they build or launch, so their
+    refusals are exercised here on CPU tensors, as is the 4-wide packer's."""
     _, kb = bench_tables
     n = 16
     o, d = (torch.as_tensor(a) for a in rays_at_knot(n, seed=4))
@@ -320,6 +334,11 @@ def test_new_walks_reject_what_their_kernels_cannot_take(bench_tables, bad, err)
             T._launch4(dataclasses.replace(kb4, meta4=kb4.meta4.long()), o, d, tm, ah)
         elif bad == "bvh4_stack":
             T._launch4(dataclasses.replace(kb4, stack_need=T.STACK4 + 1), o, d, tm, ah)
+        elif bad.endswith("_recs_shape"):
+            T._launch(dataclasses.replace(kb, recs=kb.recs[:, :12]), o, d, tm, ah, bad[:-11])
+        elif bad.endswith("_recs_dtype"):
+            T._launch(dataclasses.replace(kb, recs=kb.recs.view(torch.int32)), o, d, tm, ah,
+                      bad[:-11])
         else:
             tp, lo, hi = _knot(2, 2)
             T.pack_kernel_bvh4(T.pack_kernel_bvh(build_bvh(lo, hi), tp[:, 0], tp[:, 1], tp[:, 2]))

@@ -1,40 +1,40 @@
-"""Time the redesigned BVH kernels beside B1 on one CUDA card, for one or
-more checkouts of this repository:
+"""Time B1 and B2 (the seeded walks of csrc/bvh_traverse.cu) on one CUDA
+card, for one or more checkouts of this repository:
 
     python3 time_kernels.py [--check] [DIR ...]
     python3 time_kernels.py --sass DIR DIR ...
 
 With no DIR it times the checkout it lies in, in this process. With DIRs
 (checkouts of this repository, e.g. a parent commit unpacked with
-`git archive` into a directory .gitignore lists), it runs one process per
-DIR in turns, DIR1 ... DIRk and then DIRk ... DIR1 (for two: parent,
-change, change, parent), so that a card that runs slower or faster over
-the call shows in every DIR; each process imports the pbrt_tpu_torch of
-its DIR and builds that checkout's kernels from its csrc/.
+`git archive` into a directory .gitignore lists, or a copy of this one with
+a design step changed), it runs one process per DIR in turns, DIR1 ... DIRk
+and then DIRk ... DIR1 (for two: parent, change, change, parent), so that a
+card that runs slower or faster over the call shows in every DIR; each
+process imports the pbrt_tpu_torch of its DIR and builds that checkout's
+kernels from its csrc/.
 
 The rays, launches, timers and comparisons are those of this checkout's
 chip_smoke.py, whichever DIR is timed. At the main path's shapes (the bench
 scenes' 256x256 films at 2 samples a pixel), with CUDA events, each launch
 20 times, the least of two rounds:
-  packet  B4/B5 ("packet") on the PLY bench tree: 131,072 camera rays and
-          a 262,144-ray pair launch whose second half is any-hit;
-  b1      B1 ("queue") on the same tables and rays, the yardstick this
-          comparison leaves unchanged;
-  inst    B6 on the static and the animated instanced bench scenes:
-          131,072 camera rays with their ray times and 262,144 shell rays,
-          each bounded by B1's closest world hit, as the main path bounds it.
-Then, on the render path itself, the device ms a render spends in the
-kernels (torch.profiler, two renders after a warm-up, 2 passes of 5
-launches each): the packet kernel in the PLY bench render, B6 in the
-static instanced one.
---check first holds each kernel against its plain walk on the pair and
-shell launches (in the first turn of each DIR). Every process prints one
-JSON line {"tree", "card", "ms": {launch: ms}, "render_ms": {kernel:
-[ms, ms]}}; then come the table of all turns and whether each kernel
-compiled to the same machine code in every DIR as in the first (cuobjdump
--sass, the anonymous namespace's per-build hash masked; where a kernel
-differs, its first differing lines). --sass builds the DIRs' libraries
-and makes only that comparison.
+  b1, b2  B1 ("queue") and B2 ("all") on the large bench knot and on the
+          PLY bench tree: 131,072 camera rays and a 262,144-ray pair launch
+          whose second half is any-hit;
+  b5      B4/B5 ("packet") on the PLY tree's pair launch, the yardstick
+          this comparison leaves unchanged.
+Then, on the render path itself, the device ms a render spends in B1
+(torch.profiler, two renders after a warm-up, 2 passes of 5 launches
+each): the large bench render and the static instanced one.
+--check first holds B1, B2 and B5 against their plain walks on the pair
+launches (in the first turn of each DIR). Every process prints one JSON
+line {"tree", "card", "ms": {launch: ms}, "render_ms": {render: [ms,
+ms]}}; then come the table of all turns and whether each kernel compiled
+to the same machine code in every DIR as in the first (cuobjdump -sass,
+the anonymous namespace's per-build hash masked; where a kernel differs,
+its first differing lines). B3, B4/B5 and B6 are expected unchanged;
+B4/B5's walk_kernel<0,0,1> is compared with packet_kernel, its function
+in trees before walk_kernel. --sass builds the DIRs' libraries and makes
+only that comparison.
 """
 import difflib
 import importlib.util
@@ -48,6 +48,10 @@ import tempfile
 REPS = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
 LIBS = ("bvh_traverse", "bvh4_traverse", "instance_traverse")
+# kernels whose machine code this change should leave as it was, by ptxas's
+# name; a walk_kernel<0,0,1> is compared with a tree's packet_kernel
+UNCHANGED = ("traverse4_kernel", "packet_kernel", "instance_kernel<0>", "instance_kernel<1>")
+ALIASES = {"walk_kernel<0,0,1>": "packet_kernel"}
 
 
 def _smoke():
@@ -59,10 +63,10 @@ def _smoke():
     return mod
 
 
-def render_ms(S, cs, launches, kernels, reps=2):
-    """Device ms of kernels (function names summed) in each of reps renders
-    of cs after a warm-up; each render must make exactly launches
-    ({counter: count}) -> [ms, ...]."""
+def render_ms(S, cs, launches, kernel, reps=2):
+    """Device ms of one port kernel (a name of chip_smoke's record) in each
+    of reps renders of cs after a warm-up; each render must make exactly
+    launches ({counter: count}) -> [ms, ...]."""
     from pbrt_tpu_torch.render import Options, render_sampler_integrator
     opts = Options()
     render_sampler_integrator(cs, opts)
@@ -73,7 +77,7 @@ def render_ms(S, cs, launches, kernels, reps=2):
         counts = S.read_counts()
         if counts != {**dict.fromkeys(counts, 0), **launches}:
             raise AssertionError(f"render launches {counts}, expected {launches}")
-        out.append(sum(mine[k] for k in kernels))
+        out.append(mine[kernel])
     return out
 
 
@@ -84,53 +88,50 @@ def measure(check=False):
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device (torch.cuda.is_available() is false)")
     S = _smoke()
-    from pbrt_tpu_torch.accel import instance as I
     from pbrt_tpu_torch.accel import native
     from pbrt_tpu_torch.accel import traverse as T
-    from pbrt_tpu_torch.scene.bench import build_instanced_bench_scene, build_ply_bench_scene
+    from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench_scene,
+                                            build_ply_bench_scene)
     dev = torch.device("cuda")
-    native.load_all(["bvh_traverse", "bvh4_traverse", "instance_traverse"])
+    native.load_all(LIBS)
+    cs_l = build_bench_scene(True, dev)
     with tempfile.TemporaryDirectory(prefix="ply_bench_") as ply_dir:
         cs_p = build_ply_bench_scene(ply_dir, dev)
-    kbp = cs_p.data.bvh
-    o, d, _ = S.camera_launch(cs_p, dev)
-    n_cam = o.shape[0]
-    rays = {"camera": [o, d, torch.full((n_cam,), float("inf"), device=dev),
-                       torch.zeros(n_cam, dtype=torch.uint8, device=dev)],
-            "pair": S.pair_launch(n_cam, dev)}
+    pair = S.pair_launch(131_072, dev)
     calls = {}
-    for name, r in rays.items():
-        calls[f"packet {name}"] = (lambda r=r: T.traverse(kbp, *r, variant="packet"))
-        calls[f"b1 {name}"] = (lambda r=r: T.traverse(kbp, *r))
+    for label, cs in (("large", cs_l), ("PLY", cs_p)):
+        kb = cs.data.bvh
+        o, d, _ = S.camera_launch(cs, dev)
+        n_cam = o.shape[0]
+        cam = [o, d, torch.full((n_cam,), float("inf"), device=dev),
+               torch.zeros(n_cam, dtype=torch.uint8, device=dev)]
+        for name, r in (("camera", cam), ("pair", pair)):
+            calls[f"b1 {label} {name}"] = (lambda kb=kb, r=r: T.traverse(kb, *r))
+            calls[f"b2 {label} {name}"] = (lambda kb=kb, r=r: T.traverse(kb, *r, variant="all"))
+        if check:
+            for name in ("bvh_traverse", "bvh_traverse_all"):
+                S.compare(kb, *pair, name=name)
+    calls["b5 PLY pair"] = lambda: T.traverse(cs_p.data.bvh, *pair, variant="packet")
     if check:
-        S.compare(kbp, *rays["pair"], name="bvh_traverse_packet")
-    for animated in (False, True):
-        label = "animated" if animated else "static"
-        cs_i = build_instanced_bench_scene(animated, dev)
-        for name, (args, slot_w) in (
-                ("camera", S.world_bounded(cs_i, *S.camera_launch(cs_i, dev))),
-                ("shell", S.world_bounded(cs_i, *S.shell_rays(2 * n_cam, dev, 3)))):
-            calls[f"inst {label} {name}"] = (lambda a=args: I.instance_traverse(*a))
-            if check and name == "shell":
-                S.compare_inst(args, slot_w)
-        if not animated:
-            cs_s = cs_i
+        S.compare(cs_p.data.bvh, *pair, name="bvh_traverse_packet")
     ms = {k: S.cuda_ms(f, REPS) for k, f in calls.items()}
     ms = {k: min(v, S.cuda_ms(calls[k], REPS)) for k, v in ms.items()}
+    cs_s = build_instanced_bench_scene(False, dev)
     per_render = {
-        "packet / PLY render": render_ms(S, cs_p, {"bvh_traverse_packet": 10},
-                                         ("traverse_kernel", "packet_kernel")),
-        "inst / static render": render_ms(S, cs_s, {"bvh_traverse": 10, "instance_traverse": 10},
-                                          ("instance_kernel",)),
+        "b1 / large render": render_ms(S, cs_l, {"bvh_traverse": 10}, "bvh_traverse"),
+        "b1 / static inst render": render_ms(S, cs_s, {"bvh_traverse": 10,
+                                                       "instance_traverse": 10},
+                                             "bvh_traverse"),
     }
     return {"tree": os.getcwd(), "card": S.card_line(), "checked": check, "ms": ms,
             "render_ms": per_render}
 
 
-def sass(tree, lib, kernels):
-    """{kernel: its SASS lines} of the kernels (function names) in a built
-    library of the checkout at tree; a kernel is keyed by its mangled name
-    from the function on (template arguments and parameter types)."""
+def sass(tree, lib):
+    """{kernel: its SASS lines} of the kernels in a built library of the
+    checkout at tree; a kernel is keyed by ptxas's name (its function and
+    bool template arguments, `native._kernel_name`)."""
+    from pbrt_tpu_torch.accel.native import _kernel_name
     cuobjdump = "/usr/local/cuda/bin/cuobjdump"
     so = os.path.join(tree, "build", "pbrt_tpu_torch", f"lib{lib}.so")
     out = subprocess.run([cuobjdump if os.path.exists(cuobjdump) else "cuobjdump", "-sass", so],
@@ -138,33 +139,36 @@ def sass(tree, lib, kernels):
     funcs = {}
     for part in out.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
-        k = next((f"{len(k)}{k}" for k in kernels if f"{len(k)}{k}" in name), None)
-        if k:
+        key = _kernel_name(name.strip())
+        if key.split("<")[0].endswith("_kernel"):
             body = re.sub(r"_GLOBAL__N__[0-9a-f]+", "_GLOBAL__N__", body)
-            funcs[name[name.index(k):].strip()] = [ln.strip() for ln in body.splitlines()
-                                                   if ln.strip()]
+            funcs[ALIASES.get(key, key)] = [ln.strip() for ln in body.splitlines() if ln.strip()]
     return funcs
 
 
 def compare_sass(trees):
     """Print whether each kernel has the same SASS in every tree as in the
-    first."""
-    kernels = _smoke().PORT_KERNELS
+    first, and whether those of UNCHANGED are all identical."""
+    held = True
     for lib in LIBS:
-        base = sass(trees[0], lib, kernels)
+        base = sass(trees[0], lib)
         for tree in trees[1:]:
-            other = sass(tree, lib, kernels)
+            other = sass(tree, lib)
             print(f"SASS of lib{lib}, {tree} vs {trees[0]}:")
             for key in sorted(base.keys() | other.keys()):
-                label = re.match(r"\d+\w+?_kernel(I(?:Lb[01]E)+E)?", key).group()
+                tag = " (expected unchanged)" if key in UNCHANGED else ""
                 if key not in base or key not in other:
-                    print(f"  {label}: only in {trees[0] if key in base else tree}")
+                    print(f"  {key}{tag}: only in {trees[0] if key in base else tree}")
+                    held = held and key not in UNCHANGED
                     continue
                 diff = [ln for ln in difflib.unified_diff(base[key], other[key], n=0, lineterm="")
                         if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
-                print(f"  {label}: {len(base[key])} lines, " + (
+                held = held and not (diff and key in UNCHANGED)
+                print(f"  {key}{tag}: {len(base[key])} lines, " + (
                     "identical" if not diff else f"{len(diff)} lines differ:\n    "
                     + "\n    ".join(d[:160] for d in diff[:12])))
+    print("SASS of " + ", ".join(UNCHANGED) + (
+        ": identical in every tree" if held else ": NOT identical in every tree"))
 
 
 def main(argv):
