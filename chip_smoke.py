@@ -53,8 +53,10 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      time it beside B1 on the same tables and rays; print the time the
      scene's build took to derive its walk records;
   9. hold the "all" kernel (B2) on the PLY knot and the 4-wide kernel (B3)
-     on both bench knots and the PLY knot against their plain walks the
-     same way, and B3 against B1: equal hit masks, t bit-equal on >= 99.99%
+     on both bench knots and the PLY knot (B3 on the small knot's random
+     rays, the large knot's camera, pair and random launches and the PLY
+     knot's camera and pair launches) against their plain walks the same
+     way, and B3 against B1: equal hit masks, t bit-equal on >= 99.99%
      of hits, slot equal except on exact-t ties (rays that differ are
      printed); time both beside B1;
   10. render the PLY bench scene end to end three times after a warm-up and
@@ -625,8 +627,10 @@ def main():
     counts["bvh4_traverse"] = T.WalkCounts.for_bvh4(kb4s["PLY"])
     errs["bvh4_traverse"] = max(
         compare(kb4s["small"], *odd, name="bvh4_traverse"),
+        compare(kb4s["large"], *cam, name="bvh4_traverse"),
         compare(kb4s["large"], *pair, name="bvh4_traverse"),
         compare(kb4s["large"], *odd, name="bvh4_traverse"),
+        compare(kb4s["PLY"], *cam_p, name="bvh4_traverse"),
         compare(kb4s["PLY"], *pair, counts["bvh4_traverse"], name="bvh4_traverse"))
     print(f"all and BVH4 kernels vs plain: bit-equal in t, slot, b1, b2 and iters, b1/b2 equal "
           f"to kernel_bary, max |dt| {max(errs['bvh_traverse_all'], errs['bvh4_traverse'])}")

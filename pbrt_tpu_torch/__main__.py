@@ -4,6 +4,8 @@
 Renders each scene with the PyTorch port, on the card unless --device cpu
 is given. On the card the BVH and instance walks run the CUDA kernels
 (built at first use); with no card it raises: there is no CPU fallback.
+A scene that fails to render is logged to stderr as `error rendering PATH:
+ERROR` and the next one is rendered (the reference's log and continue).
 """
 from __future__ import annotations
 
@@ -28,13 +30,22 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
+    import torch
     from pbrt_tpu_torch.render import Options, render_file
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device "
+                           "(torch.cuda.is_available() is false); pass --device cpu")
     opts = Options(quick=args.quick, outfile=args.outfile,
                    crop_window=tuple(args.cropwindow) if args.cropwindow else None,
                    wavefront_size=args.wavefront, seed=args.seed)
     for path in args.scenes:
         t0 = time.time()
-        out, _ = render_file(path, opts, device=args.device)
+        try:
+            out, _ = render_file(path, opts, device=device)
+        except Exception as e:  # noqa: BLE001 - log and continue, as the reference does
+            print(f"error rendering {path}: {e}", file=sys.stderr)
+            continue
         if not args.quiet:
             print(f"{path} -> {out}  ({time.time() - t0:.1f}s)")
     return 0

@@ -26,7 +26,8 @@ collapse of the same tree.
 `traverse` and `traverse4` take the plain versions for CPU tensors only.
 For CUDA tensors they launch csrc/bvh_traverse.cu (every 2-wide variant
 walks the records of `walk_records` from `KernelBVH.root_word`) or
-csrc/bvh4_traverse.cu, or raise; nothing falls back.
+csrc/bvh4_traverse.cu (over the records of `bvh4_records`), or raise;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ OVF_BIT = 1 << 24
 LEAF_TAG = 1 << 30   # 4-wide stack word: leaf block, cnt in bits 26-29
 PAYLOAD = 0x3FFFFFF
 REC_FLOATS = 16      # a walk record: 12 box floats, 2 child words, 2 spare
+REC4_FLOATS = 32     # a BVH4 record: 24 box floats, 4 slot words, the axis word, 3 spare
 
 # variant -> (slab lo*inv - o*inv (else (lo - o)*inv), occluder seed, b1/b2 out)
 VARIANTS = {"queue": (True, True, False), "all": (True, True, True),
@@ -113,16 +115,21 @@ class KernelBVH4:
     kb                  the 2-wide tables it was made from: leaf blocks, order
                         and seed
     stack_need          the most stack entries the walk can hold
+    recs4 [M4,32] f32   the kernel's records, one 128-byte line a node, made
+                        from the three tables above (`bvh4_records`)
     """
     nodes4: torch.Tensor
     meta4: torch.Tensor
     axs4: torch.Tensor
     kb: KernelBVH
     stack_need: int
+    recs4: torch.Tensor
 
     def to(self, device) -> "KernelBVH4":
-        return KernelBVH4(self.nodes4.to(device), self.meta4.to(device), self.axs4.to(device),
-                          self.kb.to(device), self.stack_need)
+        return dataclasses.replace(self, kb=self.kb.to(device), **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 def walk_records(metas, nodes):
@@ -147,6 +154,20 @@ def walk_records(metas, nodes):
     recs[:, 12] = words[ids + 1].to(torch.int32)
     recs[:, 13] = words[(m[ids] >> 6) & PAYLOAD].to(torch.int32)
     return recs.view(torch.float32), words
+
+
+def bvh4_records(nodes4, meta4, axs4):
+    """The 4-wide kernel's records -> recs4 [M4,32] f32: record r belongs to
+    BVH4 node r (so a slot word names its record) and holds its four slot
+    boxes nodes4[r] in floats 0:24, its slot words meta4[4r:4r+4] as int32
+    bits in 24:28, its axis word axs4[r] in 28, and zeros in 29:32. A
+    popped word then names the one aligned 128-byte line its visit needs."""
+    M4 = axs4.shape[0]
+    recs = torch.zeros((M4, REC4_FLOATS), dtype=torch.int32, device=axs4.device)
+    recs[:, :24] = nodes4.contiguous().view(torch.int32)
+    recs[:, 24:28] = meta4.view(M4, 4)
+    recs[:, 28] = axs4
+    return recs.view(torch.float32)
 
 
 def node_depths(right: np.ndarray, cnts: np.ndarray) -> np.ndarray:
@@ -300,8 +321,9 @@ def pack_kernel_bvh4(kb: KernelBVH) -> KernelBVH4:
         raise ValueError(f"the BVH4 walk needs {need} stack entries > the kernel's {STACK4}")
     dev = kb.metas.device
     t = lambda x, dt: torch.as_tensor(np.asarray(x, dt), device=dev)
-    return KernelBVH4(t(np.reshape(boxes, (M4, 24)), np.float32),
-                      t(np.reshape(words, -1), np.int32), t(axws, np.int32), kb, need)
+    nodes4, meta4, axs4 = (t(np.reshape(boxes, (M4, 24)), np.float32),
+                           t(np.reshape(words, -1), np.int32), t(axws, np.int32))
+    return KernelBVH4(nodes4, meta4, axs4, kb, need, bvh4_records(nodes4, meta4, axs4))
 
 
 def tpu_table_bytes(kb: KernelBVH) -> int:
@@ -759,9 +781,11 @@ def _launch4(kb4: KernelBVH4, o, d, t_max, anyhit):
     kb = kb4.kb
     _check_rays(kb, o, d, t_max, anyhit)
     M4 = kb4.axs4.shape[0]
+    # the kernel reads recs4 alone; the tables it was made from must agree
     for name, x, dt, shp in (("nodes4", kb4.nodes4, torch.float32, (M4, 24)),
                              ("meta4", kb4.meta4, torch.int32, (4 * M4,)),
-                             ("axs4", kb4.axs4, torch.int32, (M4,))):
+                             ("axs4", kb4.axs4, torch.int32, (M4,)),
+                             ("recs4", kb4.recs4, torch.float32, (M4, REC4_FLOATS))):
         _check(name, x, dt, shp, o.device)
     if kb4.stack_need > STACK4:
         raise ValueError(f"the BVH4 walk needs {kb4.stack_need} > {STACK4} stack entries")
@@ -773,8 +797,8 @@ def _launch4(kb4: KernelBVH4, o, d, t_max, anyhit):
     scratch = torch.zeros(2 * g, dtype=torch.int32, device=dev)
     if n > 0:
         _call("bvh4_traverse", "pbrt_bvh4_traverse",
-              [kb4.nodes4, kb4.meta4, kb4.axs4, kb.tris, kb.seed, kb.seed_slots, o, d, t_max,
-               anyhit], out + [scratch], n, [], dev)
+              [kb4.recs4, kb.tris, kb.seed, kb.seed_slots, o, d, t_max, anyhit],
+              out + [scratch], n, [], dev)
         traverse4.launches += 1
     return (*out, scratch[:g] | (scratch[g:] << 24))
 

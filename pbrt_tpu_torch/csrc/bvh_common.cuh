@@ -1,9 +1,9 @@
 // Shared device code of the BVH walks (bvh_traverse.cu, bvh4_traverse.cu,
 // instance_traverse.cu): the ray setup, the slab test in its two forms, the
 // naive-shear watertight triangle test, the per-1024-ray-group iters
-// reduction, and the parts of the redesigned walks (B1, B2, B4/B5 and B6):
-// their ray, the walk record, the stack, the visit that keeps the near child
-// in a register, and the leaf.
+// reduction, and the parts of the redesigned walks (B1, B2, B3, B4/B5 and
+// B6): their ray, the walk record, the stack, the visit that keeps the near
+// child in a register, and the leaf.
 // Their plain PyTorch versions are pbrt_tpu_torch/accel/traverse.py::_Rays,
 // _iters and walk_records; the kernels must equal them bit for bit, so
 // build with --fmad=false, keep 1/x IEEE, and keep min/max NaN-propagating
@@ -18,8 +18,7 @@ namespace bvh {
 
 constexpr int kLeafTris = 8;    // traverse.py LEAF_TRIS
 constexpr int kGroup = 1024;    // traverse.py GROUP
-constexpr int kThreads = 256;      // a block of the first-design walk (B3)
-// A block of the redesigned walks (B1, B2, B4/B5, B6): a small block frees its
+// A block of the walks (B1, B2, B3, B4/B5, B6): a small block frees its
 // registers as soon as its own two warps are done, and B6's 65 registers
 // (allocated as 72) fit 28 warps a SM in blocks of 64 against 24 in blocks
 // of 256 (PERF.md section 6).
@@ -65,11 +64,6 @@ __device__ __forceinline__ Ray derive(float ox, float oy, float oz,
   r.sy = -pick(dx, dy, dz, r.ky) * r.sz;
   r.neg[0] = dx < 0.0f; r.neg[1] = dy < 0.0f; r.neg[2] = dz < 0.0f;
   return r;
-}
-
-__device__ __forceinline__ Ray make_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int i) {
-  return derive(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
 }
 
 // kMulSub: slab distances as lo*inv - o*inv (B1, B2, B3), else as
@@ -165,15 +159,6 @@ __device__ __forceinline__ void test_seed(const Ray& r, const float4* __restrict
   for (int j = 0; j < scnt; ++j) test_tri<kBary>(r, seed + 4 * j, __ldg(seed_slots + j), any, h);
 }
 
-// One leaf block: its first cnt of 8 triangle rows.
-template <bool kBary>
-__device__ __forceinline__ void test_leaf(const Ray& r, const float4* __restrict__ tris,
-                                          int blk, int cnt, bool any, Hit& h) {
-  const float4* rows = tris + (size_t)blk * kLeafTris * 4;
-  for (int j = 0; j < kLeafTris && j < cnt; ++j)
-    test_tri<kBary>(r, rows + 4 * j, blk * kLeafTris + j, any, h);
-}
-
 // Per 1024-ray group: max pops and any overflow (max/or are order-free).
 // Called by every thread of the block, live or not.
 __device__ __forceinline__ void group_iters(int i, int n, int pops, int ovf, int* scratch) {
@@ -191,12 +176,13 @@ __device__ __forceinline__ void group_iters(int i, int n, int pops, int ovf, int
 }
 
 // ---------------------------------------------------------------------------
-// The redesigned walks: B1, B2, B4/B5 (walk_kernel) and B6 (instance_kernel).
+// The redesigned walks: B1, B2, B4/B5 (walk_kernel), B3 (traverse4_kernel)
+// and B6 (instance_kernel).
 // Each pop makes one dependent load (the popped word says what to load),
-// the near child stays in a register, blocks are kWalkThreads small, and
-// the leaf loop is serial: a shared-memory stack, loading all 8 rows first,
-// persistent warps and dynamic fetch were measured slower on the card
-// (PERF.md section 6).
+// the 2-wide walks keep the near child in a register, blocks are
+// kWalkThreads small, and the leaf loop is serial: a shared-memory stack,
+// loading all 8 rows first, persistent warps and dynamic fetch were
+// measured slower on the card (PERF.md section 6).
 // ---------------------------------------------------------------------------
 
 // A walk word: ax | cnt<<2 | payload<<6. cnt 0: an interior node, payload
@@ -237,10 +223,8 @@ struct Stack {
 };
 
 // The redesigned walks' ray: the setup plus neg as bits (bit k set where
-// the direction's k is < 0), so the near/far choice indexes no bool array.
-// The first-design walk (B3) keeps Ray without it: it holds its Ray in
-// local memory, and the larger one grew its frame from 448 to 464 bytes and
-// changed its machine code.
+// the direction's k is < 0), so the near/far choice indexes no bool array
+// and the ray stays in registers.
 struct WalkRay : Ray {
   int negm;
 };
@@ -275,7 +259,7 @@ __device__ __forceinline__ bool visit_next(const WalkRay& r, const Rec& x, int a
 }
 
 // The redesigned walks' leaf: the first cnt of 8 triangle rows of block
-// blk, in order, as test_leaf tests them -> whether any hit. The hit's
+// blk, in order, each as test_tri tests it -> whether any hit. The hit's
 // stores stay inside the test's branch: through test_tri's return value B6
 // compiled to 69 registers and ran 19% slower.
 template <bool kBary>

@@ -290,18 +290,32 @@ def _walk_launch(kb, n, variant, dev):
     return got, launches, T.traverse_plain(*args, variant=variant)
 
 
+def _walk4_launch(kb4, n, dev):
+    """One 4-wide kernel launch of n rays at the knot, every other one
+    any-hit -> (its outputs, its launches, the plain walk's outputs)."""
+    o, d = (torch.as_tensor(a, device=dev) for a in rays_at_knot(n, seed=36))
+    ah = (torch.arange(n, device=dev) % 2).to(torch.uint8)
+    args = (kb4, o, d, torch.full((n,), float("inf"), device=dev), ah)
+    before = T.traverse4.launches
+    got = T.traverse4(*args)
+    return got, T.traverse4.launches - before, T.traverse4_plain(*args)
+
+
 @pytest.mark.parametrize("size", ["empty", "ragged", "refill"])
-@pytest.mark.parametrize("kernel", ["queue", "all", "packet", "instance"])
+@pytest.mark.parametrize("kernel", ["queue", "all", "packet", "instance", "bvh4"])
 def test_redesigned_kernel_launch_sizes(kernel, size):
-    """The "queue" (B1), "all" (B2), "packet" (B4/B5) and instance (B6)
-    kernels at 0 rays (no launch), at a ragged 4,099 rays (not a multiple of
-    32 or of the block), and at 8x the card's resident threads plus 13 (many
-    waves of blocks): every output bit-equal to the plain walk, iters
-    included."""
+    """The "queue" (B1), "all" (B2), "packet" (B4/B5), instance (B6) and
+    4-wide (B3) kernels at 0 rays (no launch), at a ragged 4,099 rays (not a
+    multiple of 32 or of the block), and at 8x the card's resident threads
+    plus 13 (many waves of blocks): every output bit-equal to the plain
+    walk, iters included."""
     needs_cuda()
     dev = torch.device("cuda")
     n = {"empty": 0, "ragged": 4099, "refill": 8 * _resident_threads() + 13}[size]
-    if kernel != "instance":
+    if kernel == "bvh4":
+        kb4 = T.pack_kernel_bvh4(build_bench_scene(False, dev).data.bvh)
+        got, launches, want = _walk4_launch(kb4, n, dev)
+    elif kernel != "instance":
         got, launches, want = _walk_launch(build_bench_scene(False, dev).data.bvh, n, kernel, dev)
     else:
         args = (build_instanced_bench_scene(False, dev).data.ibvh, *_grid_rays(n, 37, dev), False)

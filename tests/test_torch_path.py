@@ -141,6 +141,37 @@ def test_smoke_scene_renders_without_jax(tmp_path):
     assert img.shape == (8, 8, 3) and (img == 188).any() and (img < 120).sum() >= 3 * 6
 
 
+def test_cli_logs_a_failed_scene_and_goes_on(tmp_path, capsys):
+    """A missing file and an unported accelerator are each logged as
+    `error rendering PATH: ...` on stderr; the next scene still renders and
+    the CLI returns 0, as the reference's does."""
+    from pbrt_tpu_torch.__main__ import main
+    missing = tmp_path / "missing.pbrt"
+    kdtree = tmp_path / "kdtree.pbrt"
+    smoke = tmp_path / "smoke.pbrt"
+    kdtree.write_text(SMOKE.replace("{OUT}", str(tmp_path / "kd.png")).replace(
+        "WorldBegin", 'Accelerator "kdtree"\nWorldBegin'))
+    smoke.write_text(SMOKE.replace("{OUT}", str(tmp_path / "smoke.png")))
+    rc = main(["--device", "cpu", "--quiet", str(missing), str(kdtree), str(smoke)])
+    assert rc == 0
+    errs = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("error rendering")]
+    assert len(errs) == 2
+    assert errs[0].startswith(f"error rendering {missing}: ")
+    assert errs[1].startswith(f"error rendering {kdtree}: ") and "kdtree" in errs[1][len(str(kdtree)):]
+    img = read_png(str(tmp_path / "smoke.png"))
+    assert img.shape == (8, 8, 3) and np.all(img == 188)
+    assert not (tmp_path / "kd.png").exists()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CLI on a machine with no card")
+def test_cli_with_no_card_raises_before_any_scene(tmp_path):
+    """--device cuda with no card is not a scene's error: the CLI raises
+    rather than logging it and returning 0."""
+    from pbrt_tpu_torch.__main__ import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--quiet", str(tmp_path / "missing.pbrt")])
+
+
 def test_png_round_trip(tmp_path):
     rgb = np.random.default_rng(0).uniform(0, 1, (5, 7, 3)).astype(np.float32)
     write_png(str(tmp_path / "a.png"), rgb)

@@ -133,6 +133,28 @@ def test_pack4_matches_reference(knot_tables):
     assert 3 < kb4.stack_need <= 3 * kb.max_depth + 4
 
 
+def test_bvh4_records_decode_to_tables(knot_tables):
+    """The 4-wide kernel's records decode back to nodes4, meta4 and axs4 bit
+    for bit, empty slots (NaN boxes, word 0) included: one 128-byte record a
+    node, its slot words naming records."""
+    kb4 = T.pack_kernel_bvh4(knot_tables[0])
+    M4 = kb4.axs4.shape[0]
+    recs = kb4.recs4
+    assert recs.shape == (M4, T.REC4_FLOATS) and recs.dtype == torch.float32
+    assert recs.is_contiguous() and recs.element_size() * T.REC4_FLOATS == 128
+    bits = recs.view(torch.int32)
+    assert torch.equal(bits[:, :24], kb4.nodes4.view(torch.int32))
+    assert torch.equal(bits[:, 24:28].reshape(-1), kb4.meta4)
+    assert torch.equal(bits[:, 28], kb4.axs4)
+    assert not bool(bits[:, 29:].any())
+    empty = kb4.meta4.view(M4, 4) == 0
+    assert bool(empty.any())
+    boxes = recs[:, :24].view(M4, 4, 6)
+    assert bool(torch.isnan(boxes[empty]).all()) and not bool(torch.isnan(boxes[~empty]).any())
+    words = kb4.meta4[(kb4.meta4 != 0) & ((kb4.meta4 & T.LEAF_TAG) == 0)]
+    assert sorted(words.tolist()) == list(range(1, M4))
+
+
 ONE_BLOCK = dict(rows=1, pops=1, interpret=True)
 # kernel -> (the reference's call at one 128-ray block and one pop a step,
 # the port's plain walk; None: the 4-wide walk). B5 is the reference's
@@ -311,6 +333,7 @@ def test_launch_rejects_what_the_kernel_cannot_take(bench_tables, bad, err):
     ("unknown_variant", ValueError), ("packet_d_float64", TypeError),
     ("bvh4_nodes_shape", ValueError), ("bvh4_meta_dtype", TypeError),
     ("bvh4_stack", ValueError), ("bvh4_leaf_root", ValueError),
+    ("bvh4_recs_shape", ValueError), ("bvh4_recs_dtype", TypeError),
     ("queue_recs_shape", ValueError), ("queue_recs_dtype", TypeError),
     ("all_recs_shape", ValueError), ("all_recs_dtype", TypeError)])
 def test_new_walks_reject_what_their_kernels_cannot_take(bench_tables, bad, err):
@@ -332,6 +355,10 @@ def test_new_walks_reject_what_their_kernels_cannot_take(bench_tables, bad, err)
             T._launch4(dataclasses.replace(kb4, nodes4=kb4.nodes4[:-1]), o, d, tm, ah)
         elif bad == "bvh4_meta_dtype":
             T._launch4(dataclasses.replace(kb4, meta4=kb4.meta4.long()), o, d, tm, ah)
+        elif bad == "bvh4_recs_shape":
+            T._launch4(dataclasses.replace(kb4, recs4=kb4.recs4[:, :24]), o, d, tm, ah)
+        elif bad == "bvh4_recs_dtype":
+            T._launch4(dataclasses.replace(kb4, recs4=kb4.recs4.view(torch.int32)), o, d, tm, ah)
         elif bad == "bvh4_stack":
             T._launch4(dataclasses.replace(kb4, stack_need=T.STACK4 + 1), o, d, tm, ah)
         elif bad.endswith("_recs_shape"):

@@ -1,5 +1,6 @@
-"""Time B1 and B2 (the seeded walks of csrc/bvh_traverse.cu) on one CUDA
-card, for one or more checkouts of this repository:
+"""Time the seeded walks, B1 and B2 (csrc/bvh_traverse.cu) and B3
+(csrc/bvh4_traverse.cu), on one CUDA card, for one or more checkouts of
+this repository:
 
     python3 time_kernels.py [--check] [DIR ...]
     python3 time_kernels.py --sass DIR DIR ...
@@ -20,21 +21,22 @@ scenes' 256x256 films at 2 samples a pixel), with CUDA events, each launch
   b1, b2  B1 ("queue") and B2 ("all") on the large bench knot and on the
           PLY bench tree: 131,072 camera rays and a 262,144-ray pair launch
           whose second half is any-hit;
+  b3      B3 (the 4-wide walk over each tree's 4-wide collapse) on the
+          same trees and rays;
   b5      B4/B5 ("packet") on the PLY tree's pair launch, the yardstick
           this comparison leaves unchanged.
 Then, on the render path itself, the device ms a render spends in B1
 (torch.profiler, two renders after a warm-up, 2 passes of 5 launches
 each): the large bench render and the static instanced one.
---check first holds B1, B2 and B5 against their plain walks on the pair
-launches (in the first turn of each DIR). Every process prints one JSON
-line {"tree", "card", "ms": {launch: ms}, "render_ms": {render: [ms,
-ms]}}; then come the table of all turns and whether each kernel compiled
+--check first holds B1, B2, B3 and B5 against their plain walks on the
+pair launches, and B3 on the camera launches too (in the first turn of
+each DIR). Every process prints one JSON line {"tree", "card", "ms":
+{launch: ms}, "render_ms": {render: [ms, ms]}}; then come the table of all turns and whether each kernel compiled
 to the same machine code in every DIR as in the first (cuobjdump -sass,
 the anonymous namespace's per-build hash masked; where a kernel differs,
-its first differing lines). B3, B4/B5 and B6 are expected unchanged;
-B4/B5's walk_kernel<0,0,1> is compared with packet_kernel, its function
-in trees before walk_kernel. --sass builds the DIRs' libraries and makes
-only that comparison.
+its first differing lines). The five redesigned kernels of UNCHANGED
+(B1, B2, B4/B5 and both B6 paths) are expected unchanged. --sass builds
+the DIRs' libraries and makes only that comparison.
 """
 import difflib
 import importlib.util
@@ -49,9 +51,9 @@ REPS = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
 LIBS = ("bvh_traverse", "bvh4_traverse", "instance_traverse")
 # kernels whose machine code this change should leave as it was, by ptxas's
-# name; a walk_kernel<0,0,1> is compared with a tree's packet_kernel
-UNCHANGED = ("traverse4_kernel", "packet_kernel", "instance_kernel<0>", "instance_kernel<1>")
-ALIASES = {"walk_kernel<0,0,1>": "packet_kernel"}
+# name: B1, B2, B4/B5 and B6's static and slerp paths
+UNCHANGED = ("walk_kernel<1,1,0>", "walk_kernel<1,1,1>", "walk_kernel<0,0,1>",
+             "instance_kernel<0>", "instance_kernel<1>")
 
 
 def _smoke():
@@ -101,6 +103,7 @@ def measure(check=False):
     calls = {}
     for label, cs in (("large", cs_l), ("PLY", cs_p)):
         kb = cs.data.bvh
+        kb4 = T.pack_kernel_bvh4(kb)
         o, d, _ = S.camera_launch(cs, dev)
         n_cam = o.shape[0]
         cam = [o, d, torch.full((n_cam,), float("inf"), device=dev),
@@ -108,9 +111,12 @@ def measure(check=False):
         for name, r in (("camera", cam), ("pair", pair)):
             calls[f"b1 {label} {name}"] = (lambda kb=kb, r=r: T.traverse(kb, *r))
             calls[f"b2 {label} {name}"] = (lambda kb=kb, r=r: T.traverse(kb, *r, variant="all"))
+            calls[f"b3 {label} {name}"] = (lambda kb4=kb4, r=r: T.traverse4(kb4, *r))
         if check:
             for name in ("bvh_traverse", "bvh_traverse_all"):
                 S.compare(kb, *pair, name=name)
+            S.compare(kb4, *cam, name="bvh4_traverse")
+            S.compare(kb4, *pair, name="bvh4_traverse")
     calls["b5 PLY pair"] = lambda: T.traverse(cs_p.data.bvh, *pair, variant="packet")
     if check:
         S.compare(cs_p.data.bvh, *pair, name="bvh_traverse_packet")
@@ -142,7 +148,7 @@ def sass(tree, lib):
         key = _kernel_name(name.strip())
         if key.split("<")[0].endswith("_kernel"):
             body = re.sub(r"_GLOBAL__N__[0-9a-f]+", "_GLOBAL__N__", body)
-            funcs[ALIASES.get(key, key)] = [ln.strip() for ln in body.splitlines() if ln.strip()]
+            funcs[key] = [ln.strip() for ln in body.splitlines() if ln.strip()]
     return funcs
 
 
