@@ -63,7 +63,21 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      its loopsubdiv variant once: finite and nonzero, 5 "packet" launches
      per pass and no B1 launch; one render under torch.profiler for the
      device's busy time and the packet kernel's device ms; a 32x32 crop
-     bitwise equal over two renders and close to the CPU crop.
+     bitwise equal over two renders and close to the CPU crop;
+  11. render the sphere scene of BASELINE.json's first configuration (one
+     matte sphere, one point light, 256x256, 02sequence at 16 spp, depth 5;
+     no triangle, so no BVH kernel) end to end three times after a warm-up:
+     finite and nonzero, no kernel launch; one render under torch.profiler
+     for the device's kernels, time and busy share; a 32x32 crop over the
+     sphere bitwise equal over two renders and close to the CPU crop; time
+     the quadric pass on the pair launch's 262,144 rays with CUDA events;
+  12. the same for the quadric showcase (the large bench scene with one
+     shape of each quadric kind, a cylinder instanced twice, an emitting
+     sphere, point, spot and distant lights and 18 curves; 256x256, 4 spp,
+     depth 4): 5 B1 launches per pass, B1 bit-equal to its plain walk on
+     its tree's camera and pair launches, and the quadric pass's ms on the
+     pair launch (bounded by B1's hits, as the main path bounds it) beside
+     B1's pair launch on the same tree.
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
@@ -88,8 +102,9 @@ from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
 from pbrt_tpu_torch.samplers import sample_dim
 from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench_scene,
-                                        build_ply_bench_scene)
-from pbrt_tpu_torch.scene.intersect import kernel_bary
+                                        build_ply_bench_scene, build_quadric_showcase,
+                                        build_sphere_scene)
+from pbrt_tpu_torch.scene.intersect import _quadric_pass, kernel_bary
 
 # each kernel of the JSON record: the TPU kernel it replaces and its source
 REPLACES = {"bvh_traverse": "pbrt_tpu/accel/pallas_traverse.py:1001",
@@ -452,6 +467,47 @@ def check_crop(a, b, c, label):
           f"{c.mean():.6f}")
 
 
+def render_quadric_scene(label, build, crop, want, dev, card):
+    """Build and render one scene with quadrics end to end (phases 11 and
+    12): three timed renders after a warm-up, each finite and nonzero with
+    the launches want ({kernel: launches per pass}); one render under
+    torch.profiler; the crop bitwise equal over two renders and close to
+    the CPU crop -> the scene built on the card."""
+    t0 = time.time()
+    cs = build(dev)
+    print(f"{label} scene built in {time.time() - t0:.2f} s: {cs.flags.n_tris} triangles, "
+          f"{cs.flags.n_quadrics} quadrics of kinds {tuple(cs.data.quads.by_kind)}, "
+          f"{cs.flags.n_lights} lights of kinds {cs.data.lights.kinds}")
+    crop = Options(crop_window=crop)
+    a, _, _ = render_sampler_integrator(build(dev, crop), crop)
+    torch.cuda.synchronize()   # the crop render is the warm-up
+    opts = Options()
+    walls = []
+    for _ in range(3):
+        zero_counts()
+        t0 = time.time()
+        img, cnt, passes = render_sampler_integrator(cs, opts)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        launches = read_counts()
+        check_render(img, launches, {k: v * passes for k, v in want.items()}, label)
+    wall = sorted(walls)[1]
+    samples = 256 * 256 * cs.sampler.rounded_spp()
+    live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
+    print(f"{label} render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; "
+          f"{passes} passes, kernel launches {launches}; {samples / wall:.0f} samples/s, "
+          f"{live / wall / 1e6:.3f} M live rays/s ({live} live rays), mean "
+          f"{float(img.mean()):.5f}  [{card}]")
+    busy, n_kern, top, mine = profile_render(cs, opts)
+    print(f"{label} render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device "
+          f"time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; B1 "
+          f"{mine['bvh_traverse']:.3f} ms; top device ops (ms): {top}  [{card}]")
+    b, _, _ = render_sampler_integrator(build(dev, crop), crop)
+    c, _, _ = render_sampler_integrator(build("cpu", crop), crop)
+    check_crop(a, b, c, label)
+    return cs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -696,7 +752,34 @@ def main():
           f"[{card}]")
     ply_dir.cleanup()
 
+    # ---- 11: the sphere scene of BASELINE.json's first configuration ----
+    cs_s = render_quadric_scene("sphere", lambda dv, o=None: build_sphere_scene(dv, o),
+                                (0.4375, 0.5625, 0.4375, 0.5625), {}, dev, card)
     n_pair = pair[0].shape[0]
+    unbounded = torch.full((n_pair,), float("inf"), device=dev)
+    q_ms = cuda_ms(lambda: _quadric_pass(cs_s.data.quads, pair[0], pair[1], unbounded), 20)
+    print(f"quadric pass of the sphere scene (1 sphere), {n_pair} rays: {q_ms:.3f} ms  [{card}]")
+    del cs_s
+
+    # ---- 12: the quadric showcase ----
+    cs_q = render_quadric_scene("showcase", lambda dv, o=None: build_quadric_showcase(dv, o),
+                                (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 5}, dev, card)
+    kbq = cs_q.data.bvh
+    cam_q = [*camera_launch(cs_q, dev)[:2], cam[2], cam[3]]
+    err_q = max(compare(kbq, *cam_q), compare(kbq, *pair))
+    t_q = T.traverse(kbq, *pair)[0]
+    q_ms, b1_ms = [], []
+    for _ in range(2):   # in turns, each the least of two
+        q_ms.append(cuda_ms(lambda: _quadric_pass(cs_q.data.quads, pair[0], pair[1], t_q),
+                            20))
+        b1_ms.append(cuda_ms(lambda: T.traverse(kbq, *pair), 20))
+    q_t, q_id = _quadric_pass(cs_q.data.quads, pair[0], pair[1], t_q)
+    print(f"showcase tree: {kbq.metas.shape[0]} nodes; B1 vs plain on its camera and pair "
+          f"launches: bit-equal, max |dt| {err_q}; pair launch, {n_pair} rays: quadric pass "
+          f"{min(q_ms):.3f} ms ({int((q_id >= 0).sum())} quadric hits below B1's t), B1 "
+          f"{min(b1_ms):.3f} ms  [{card}]")
+    del cs_q, kbq, cam_q, t_q
+
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "
         f"box tests, {c.tri_tests / n_pair:.2f} triangle tests, stack at most {c.max_stack}"

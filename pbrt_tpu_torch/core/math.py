@@ -43,6 +43,23 @@ def diff_of_products(a, b, c, d):
     return (a * b - cd) + err
 
 
+def quadratic(a, b, c):
+    """Roots of a t^2 + b t + c = 0 -> (has_solution, t0, t1), t0 <= t1;
+    the t values are garbage where has_solution is false. The discriminant
+    is a difference of products; a == 0 takes the linear root."""
+    discrim = diff_of_products(b, b, 4.0 * a, c)
+    has = discrim >= 0.0
+    root = torch.sqrt(torch.clamp(discrim, min=0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+    t0 = q / torch.where(a == 0.0, 1.0, a)
+    t1 = c / torch.where(q == 0.0, 1.0, q)
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    lin = a == 0.0
+    lin_t = -c / torch.where(b == 0.0, 1.0, b)
+    return (torch.where(lin, b != 0.0, has), torch.where(lin, lin_t, lo),
+            torch.where(lin, lin_t, hi))
+
+
 def cross(a, b):
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]

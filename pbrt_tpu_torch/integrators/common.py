@@ -1,5 +1,6 @@
-"""Shared integrator machinery: camera rays, NEE with MIS, light pdfs (port
-of pbrt_tpu/integrators/common.py for power-based light selection).
+"""Shared integrator machinery: camera rays, NEE with MIS (delta lights take
+weight 1), light pdfs (port of pbrt_tpu/integrators/common.py for
+power-based light selection).
 
 Static sampler dimension layout (the reference's):
   0,1 film jitter | 2,3 lens | 4 time
@@ -59,7 +60,7 @@ def prepare_one_light(cs, si, lobes, active, u_sel, u_light):
     sd = to_l / torch.clamp(dist, min=1e-12)[:, None]
 
     pdf_b = B.bsdf_pdf(lobes, wo_local, wi_local)
-    w_l = power_heuristic(1.0, ls.pdf * pmf, 1.0, pdf_b)
+    w_l = torch.where(ls.is_delta, 1.0, power_heuristic(1.0, ls.pdf * pmf, 1.0, pdf_b))
     denom = torch.clamp(ls.pdf * pmf, min=1e-12)
     ld = torch.where(contributes[:, None], f * ls.li * (w_l / denom)[:, None], 0.0)
     return ld, o, sd, dist * (1.0 - 1e-3), contributes

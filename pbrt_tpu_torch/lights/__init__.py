@@ -1,12 +1,20 @@
 """Light table, sampling and emission (port of pbrt_tpu/lights/__init__.py
-for the diffuse area light on triangles and the constant infinite light).
+for the point, spot and distant lights, the diffuse area light on meshes
+and quadrics, and the constant infinite light).
 
 params layout [L, 12]:
-  AREA:     [0] is_mesh, [2] tri_start, [3] tri_count, [4] total_area,
-            [5] two_sided, [6] cdf offset
+  POINT:    [0:3] world position
+  SPOT:     [0:3] position, [3:6] world direction, [6] cos of the cone
+            angle, [7] cos of the start of the falloff
+  DISTANT:  [3:6] world direction toward the light
+  AREA:     [0] 1 on a mesh, 0 on a quadric, [1] quadric row, [2] first
+            emitter triangle, [3] their count, [4] total area,
+            [5] two-sided, [6] cdf offset
   INFINITE: [8] image id (-1 = constant)
-Point, spot, projection, goniometric and distant lights, environment maps
-and the spatial light distribution raise NotImplementedError.
+A quadric emitter is sampled by area through a tessellation built with the
+scene (shapes/quadrics.py tessellate_quadric); its hits are the analytic
+ones. Projection and goniometric lights, environment maps and the other
+light-selection strategies raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -16,39 +24,77 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core import math as vm
-from pbrt_tpu_torch.core.math import cross, dot, PI, INV_4PI
+from pbrt_tpu_torch.core.math import cross, dot, INV_4PI
 from pbrt_tpu_torch.core.sampling import uniform_sample_sphere, uniform_sample_triangle
 from pbrt_tpu_torch.core.spectrum import RGB_TO_Y
+from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.shapes.quadrics import tessellate_quadric
 
-L_AREA, L_INFINITE = 5, 6   # the reference's kind ids
+L_POINT, L_SPOT, L_PROJECTION, L_GONIO, L_DISTANT, L_AREA, L_INFINITE = range(7)
+KIND_IDS = {"point": L_POINT, "spot": L_SPOT, "distant": L_DISTANT, "area": L_AREA,
+            "infinite": L_INFINITE, "exinfinite": L_INFINITE}
+DELTA_KINDS = (L_POINT, L_SPOT, L_PROJECTION, L_GONIO, L_DISTANT)
 
 
 @dataclasses.dataclass
 class LiSample:
-    wi: torch.Tensor       # [N,3]
-    li: torch.Tensor       # [N,3]
-    pdf: torch.Tensor      # [N] solid-angle pdf
-    p_light: torch.Tensor  # [N,3] shadow-ray target
+    wi: torch.Tensor        # [N,3]
+    li: torch.Tensor        # [N,3]
+    pdf: torch.Tensor       # [N] solid-angle pdf (1 for delta lights)
+    p_light: torch.Tensor   # [N,3] shadow-ray target
+    is_delta: torch.Tensor  # [N] bool
 
 
-def compile_lights(lights, shape_tri_range, tp):
+def _emitter_triangles(lr, shape_tri_range, tp, shape_quads):
+    """An area light's emitter -> (triangles [T,3,3], params[0], params[1]),
+    or None for an emitter inside an object (its baked copies carry it)."""
+    if lr.shape_index in shape_tri_range:
+        start, count = shape_tri_range[lr.shape_index]
+        return tp[start:start + count], 1.0, 0.0
+    if lr.shape_index in shape_quads:
+        qi, qtype, qp, o2w, rev = shape_quads[lr.shape_index]
+        return tessellate_quadric(qtype, qp, o2w, flip_normal=rev), 0.0, qi
+    return None
+
+
+def compile_lights(lights, shape_tri_range, tp, shape_quads):
     """Host: LightRecords -> (rows, tri_cdf, ltri [C,3,3]); rows are
-    (kind, L, params). tp [T,3,3] holds the scene triangles."""
+    (kind, L, params). tp [T,3,3] holds the scene triangles; shape_quads
+    maps a quadric shape's index to (its row, kind, params, o2w, reversed)."""
     rows, cdfs, ltris = [], [], []
     for lr in lights:
         ps = lr.params
         params = np.zeros(12, np.float32)
         params[8] = -1
         scale = ps.find_one_rgb("scale", [1, 1, 1])
-        if lr.kind == "area":
-            if lr.shape_index not in shape_tri_range:
-                continue   # an emitter inside an object: its baked copies carry it
-            kid = L_AREA
+        kid = KIND_IDS.get(lr.kind)
+        if kid is None:
+            raise NotImplementedError(f"light {lr.kind!r} is not ported")
+        t = Transform(lr.l2w)
+        if kid == L_POINT:
+            L = ps.find_one_rgb("I", [1, 1, 1]) * scale
+            params[0:3] = np.asarray(t.point(ps.find_one_rgb("from", [0, 0, 0])))
+        elif kid == L_SPOT:
+            L = ps.find_one_rgb("I", [1, 1, 1]) * scale
+            params[0:3] = np.asarray(t.point(ps.find_one_rgb("from", [0, 0, 0])))
+            d = np.asarray(t.point(ps.find_one_rgb("to", [0, 0, 1]))) - params[0:3]
+            params[3:6] = d / max(np.linalg.norm(d), 1e-9)
+            cone = ps.find_one_float("coneangle", 30.0)
+            delta = ps.find_one_float("conedeltaangle", 5.0)
+            params[6] = np.cos(np.radians(cone))
+            params[7] = np.cos(np.radians(cone - delta))
+        elif kid == L_DISTANT:
+            L = ps.find_one_rgb("L", [1, 1, 1]) * scale
+            w = (np.asarray(t.point(ps.find_one_rgb("from", [0, 0, 0])))
+                 - np.asarray(t.point(ps.find_one_rgb("to", [0, 0, 1]))))
+            params[3:6] = w / max(np.linalg.norm(w), 1e-9)
+        elif kid == L_AREA:
+            emitter = _emitter_triangles(lr, shape_tri_range, tp, shape_quads)
+            if emitter is None:
+                continue
+            light_tris, params[0], params[1] = emitter
             L = ps.find_one_rgb("L", [1, 1, 1]) * scale
             params[5] = 1.0 if ps.find_one_bool("twosided", False) else 0.0
-            start, count = shape_tri_range[lr.shape_index]
-            light_tris = tp[start:start + count]
-            params[0] = 1.0
             P0, P1, P2 = light_tris[:, 0], light_tris[:, 1], light_tris[:, 2]
             areas = 0.5 * np.linalg.norm(np.cross(P1 - P0, P2 - P0), axis=-1)
             total = float(areas.sum())
@@ -58,13 +104,10 @@ def compile_lights(lights, shape_tri_range, tp):
             params[6] = params[2]
             cdfs.append((np.cumsum(areas) / max(total, 1e-12)).astype(np.float32))
             ltris.append(light_tris.astype(np.float32))
-        elif lr.kind in ("infinite", "exinfinite"):
-            kid = L_INFINITE
+        else:
             L = ps.find_one_rgb("L", [1, 1, 1]) * scale
             if ps.find_one_string("mapname", ""):
                 raise NotImplementedError("infinite light 'mapname' (environment map) is not ported")
-        else:
-            raise NotImplementedError(f"light {lr.kind!r} is not ported")
         rows.append((kid, np.asarray(L, np.float32), params))
     tri_cdf = np.concatenate(cdfs) if cdfs else np.zeros(1, np.float32)
     ltri = np.concatenate(ltris) if ltris else np.zeros((1, 3, 3), np.float32)
@@ -74,27 +117,66 @@ def compile_lights(lights, shape_tri_range, tp):
 def light_power(kind, L_rgb, params, world_radius):
     """Approximate power for the selection distribution."""
     y = float(np.dot(L_rgb, RGB_TO_Y))
+    if kind == L_POINT:
+        return 4.0 * np.pi * y
+    if kind == L_SPOT:
+        return 2.0 * np.pi * (1.0 - 0.5 * (params[6] + params[7])) * y
     if kind == L_AREA:
         return params[4] * np.pi * y * (2.0 if params[5] > 0.5 else 1.0)
-    return np.pi * world_radius * world_radius * y
+    return np.pi * world_radius * world_radius * y   # distant, infinite
+
+
+def _spot_falloff(cos_w, cos_total, cos_falloff):
+    d = torch.clamp((cos_w - cos_total) / torch.clamp(cos_falloff - cos_total, min=1e-6),
+                    0.0, 1.0)
+    return torch.where(cos_w < cos_total, 0.0,
+                       torch.where(cos_w > cos_falloff, 1.0, (d * d) * (d * d)))
 
 
 def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
-    """Sample an incident direction from per-lane light light_idx [N]."""
+    """Sample an incident direction from per-lane light light_idx [N];
+    only the kinds the table holds are evaluated."""
+    kinds = lights.kinds
     li_idx = torch.clamp(light_idx, min=0)
     kind = lights.kind[li_idx]
-    area = _sample_area(lights, li_idx, ref_p, u2)
-    # constant infinite light: uniform sphere
-    wi_c = uniform_sample_sphere(u2)
-    inf = LiSample(wi_c, lights.L[li_idx],
-                   torch.full(light_idx.shape, INV_4PI, device=ref_p.device),
-                   ref_p + wi_c * (2.0 * world_radius))
-    is_area = kind == L_AREA
-    a3 = is_area[:, None]
-    pdf = torch.where(is_area, area.pdf, inf.pdf)
-    return LiSample(torch.where(a3, area.wi, inf.wi), torch.where(a3, area.li, inf.li),
-                    torch.where(light_idx < 0, 0.0, pdf),
-                    torch.where(a3, area.p_light, inf.p_light))
+    Lv = lights.L[li_idx]
+    pr = lights.params[li_idx]
+    n = ref_p.shape[0]
+    # candidates in the order point family, distant, area, infinite; the
+    # last one present is the default of the selection below
+    picks = []
+    if L_POINT in kinds or L_SPOT in kinds:
+        pos = pr[:, 0:3]
+        to_l = pos - ref_p
+        d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
+        wi = to_l * torch.rsqrt(d2)[:, None]
+        li = Lv / d2[:, None]
+        if L_SPOT in kinds:
+            fall = _spot_falloff(dot(-wi, pr[:, 3:6]), pr[:, 6], pr[:, 7])
+            li = torch.where((kind == L_SPOT)[:, None], li * fall[:, None], li)
+        picks.append(((kind == L_POINT) | (kind == L_SPOT),
+                      LiSample(wi, li, torch.ones(n, device=ref_p.device), pos, None)))
+    if L_DISTANT in kinds:
+        w = pr[:, 3:6]
+        picks.append((kind == L_DISTANT, LiSample(w, Lv, torch.ones(n, device=ref_p.device),
+                                                  ref_p + w * (2.0 * world_radius), None)))
+    if L_AREA in kinds:
+        picks.append((kind == L_AREA, _sample_area(lights, li_idx, ref_p, u2)))
+    if L_INFINITE in kinds:
+        # constant infinite light: uniform sphere
+        wi_c = uniform_sample_sphere(u2)
+        picks.append((kind == L_INFINITE,
+                      LiSample(wi_c, Lv, torch.full((n,), INV_4PI, device=ref_p.device),
+                               ref_p + wi_c * (2.0 * world_radius), None)))
+    _, out = picks[-1]
+    for sel, s in reversed(picks[:-1]):
+        s3 = sel[:, None]
+        out = LiSample(torch.where(s3, s.wi, out.wi), torch.where(s3, s.li, out.li),
+                       torch.where(sel, s.pdf, out.pdf),
+                       torch.where(s3, s.p_light, out.p_light), None)
+    is_delta = (kind == L_POINT) | (kind == L_SPOT) | (kind == L_DISTANT)
+    return LiSample(out.wi, out.li, torch.where(light_idx < 0, 0.0, out.pdf), out.p_light,
+                    is_delta)
 
 
 def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
@@ -134,12 +216,13 @@ def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
     emits = torch.where(two_sided, torch.abs(cos_l) > 1e-7, cos_l > 1e-7)
     pdf = d2 / torch.clamp(torch.abs(cos_l), min=1e-9) / total_area
     li = torch.where(emits[:, None], lights.L[li_idx], 0.0)
-    return LiSample(wi, li, torch.where(emits, pdf, 0.0), p)
+    return LiSample(wi, li, torch.where(emits, pdf, 0.0), p, None)
 
 
 def pdf_li(lights, light_idx, hit_t, hit_cos):
     """Solid-angle pdf that sample_li gives direction wi toward light
-    light_idx; for area lights the caller passes the hit's t and |cos|."""
+    light_idx; for area lights the caller passes the hit's t and |cos|.
+    Delta lights have none (0)."""
     li_idx = torch.clamp(light_idx, min=0)
     kind = lights.kind[li_idx]
     total_area = torch.clamp(lights.params[li_idx, 4], min=1e-12)

@@ -1,15 +1,14 @@
 """Scene-compiler state machine: directives -> host SceneDescription (port of
-pbrt_tpu/scene/api.py). Object instances and animated shapes become shared
-prototypes behind per-instance transform pairs. Directives the port does not
-cover yet (textures, media, quadrics, curves, TransformTimes other than 0 1)
-raise NotImplementedError naming what they met. Triangle meshes come inline
-(trianglemesh), from PLY files (plymesh) or from Loop subdivision
-(loopsubdiv)."""
+pbrt_tpu/scene/api.py). Object instances and animated meshes become shared
+prototypes behind per-instance transform pairs; a prototype that holds a
+quadric or an emitter is baked, and an animated quadric stays at its start
+transform, as in the reference. Directives the port does not cover yet
+(textures, media, TransformTimes other than 0 1) raise NotImplementedError
+naming what they met. The shapes are those of shapes/factory.py."""
 from __future__ import annotations
 
+import copy
 import dataclasses
-import logging
-import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,10 +31,15 @@ class MaterialDecl:
 @dataclasses.dataclass
 class ShapeRecord:
     kind: str
-    mesh: object = None             # TriangleMeshData
+    mesh: object = None             # TriangleMeshData; None for a quadric
     material: int = -1
     area_light: int = -1
     reverse_orientation: bool = False
+    quad_type: int = -1             # quadrics: shapes/quadrics.py kind id,
+    quad_params: np.ndarray = None  # its [8] parameters, its area
+    quad_area: float = 0.0
+    o2w: np.ndarray = None          # and its object<->world matrices
+    w2o: np.ndarray = None
 
 
 @dataclasses.dataclass
@@ -275,10 +279,11 @@ class Api:
         Prototypes of triangle meshes without area lights share one copy of
         their geometry behind a per-instance transform pair, which also
         carries motion blur. Their vertices hold the full definition-time
-        CTM, and the raw instance CTM maps that space to world. Emitting
-        prototypes are baked instead (geometry duplicated per instance)."""
+        CTM, and the raw instance CTM maps that space to world. Prototypes
+        with quadrics or emitters are baked instead (geometry duplicated
+        per instance, at the start transform)."""
         recs = self.objects.get(name, [])
-        if recs and all(r.area_light < 0 for r in recs):
+        if recs and all(r.mesh is not None and r.area_light < 0 for r in recs):
             if name not in self.proto_ids:
                 self.proto_ids[name] = len(self.scene.prototypes)
                 self.scene.prototypes.append(list(recs))
@@ -292,13 +297,20 @@ class Api:
         self._bake_instance(name)
 
     def _bake_instance(self, name):
-        """Geometry-duplicating fallback for prototypes with emitters."""
+        """Geometry-duplicating fallback for prototypes with quadrics or
+        emitters: meshes get their vertices moved, quadrics the instance
+        transform composed onto theirs."""
         inst = self.ctm.t[0]
         for rec in self.objects.get(name, []):
-            m = rec.mesh
-            r = dataclasses.replace(rec, mesh=dataclasses.replace(
-                m, p=np.asarray(inst.point(m.p), np.float32),
-                n=None if m.n is None else np.asarray(inst.normal(m.n), np.float32)))
+            r = copy.copy(rec)
+            if r.mesh is not None:
+                m = r.mesh
+                r.mesh = dataclasses.replace(
+                    m, p=np.asarray(inst.point(m.p), np.float32),
+                    n=None if m.n is None else np.asarray(inst.normal(m.n), np.float32))
+            else:
+                comb = inst * Transform(r.o2w)
+                r.o2w, r.w2o = comb.m, comb.m_inv
             idx = len(self.scene.shapes)
             self.scene.shapes.append(r)
             if r.area_light >= 0:
@@ -310,62 +322,32 @@ class Api:
                     shape_index=idx))
 
     # -- shapes ----------------------------------------------------------
-    def _make_mesh(self, kind, ps: ParamSet, o2w):
-        """A shape's triangle mesh in world space (pbrt_tpu/shapes/factory.py's
-        trianglemesh, plymesh and loopsubdiv), or None for a PLY file that
-        is missing, which is logged and adds no shape."""
-        from pbrt_tpu_torch.shapes.triangle import TriangleMeshData, mesh_from_params
-        if kind == "trianglemesh":
-            return mesh_from_params(ps, o2w)
-        if kind not in ("plymesh", "loopsubdiv"):
-            raise NotImplementedError(f"shape {kind!r} is not ported")
-        for name in ("alpha", "shadowalpha"):
-            if name in ps:
-                raise NotImplementedError(f"{kind} parameter {name!r} is not ported")
-        if kind == "plymesh":
-            from pbrt_tpu_torch.shapes.ply import read_ply
-            fname = ps.find_one_string("filename", "")
-            path = fname if os.path.isabs(fname) else os.path.join(self.cwd, fname)
-            if not os.path.exists(path):
-                logging.getLogger(__name__).warning("PLY not found: %s", path)
-                return None
-            v, n, uv, f = read_ply(path)
-        else:
-            from pbrt_tpu_torch.shapes.loopsubdiv import loop_subdivide
-            levels = ps.find_one_int("levels", ps.find_one_int("nlevels", 3))
-            v, f, n = loop_subdivide(ps.find_point3s("P"), ps.find_ints("indices").reshape(-1, 3),
-                                     levels)
-            uv = None
-        return TriangleMeshData(f.astype(np.int32), np.asarray(o2w.point(v), np.float32),
-                                None if n is None else np.asarray(o2w.normal(n), np.float32),
-                                uv, o2w.swaps_handedness())
-
     def shape(self, kind, ps: ParamSet):
+        from pbrt_tpu_torch.shapes.factory import make_shapes
         o2w = self.ctm.t[0]
-        mesh = self._make_mesh(kind, ps, o2w)
-        if mesh is None:
-            return
-        rec = ShapeRecord("trianglemesh", mesh=mesh,
-                          material=self.gs.material,
-                          reverse_orientation=self.gs.reverse_orientation)
-        if self.gs.area_light is not None:
-            akind, aps = self.gs.area_light
-            rec.area_light = len(self.scene.lights)
-            self.scene.lights.append(LightRecord(akind if akind != "diffuse" else "area",
-                                                 aps, o2w.m.copy(), o2w.m_inv.copy()))
-        if self.current_object is not None:
-            self.objects[self.current_object].append(rec)
-        elif self.ctm.is_animated() and rec.area_light < 0:
-            # an animated shape becomes an animated single-instance
-            # prototype; its vertices hold the start transform, so the
-            # instance's motion is the change from start to end
-            self.scene.prototypes.append([rec])
-            m1 = self.ctm.t[1] * self.ctm.t[0].inverse()
-            self.scene.instances.append(dict(
-                proto=len(self.scene.prototypes) - 1,
-                m_p2w0=np.eye(4, dtype=np.float32), m_w2p0=np.eye(4, dtype=np.float32),
-                m_p2w1=m1.m.copy(), m_w2p1=m1.m_inv.copy(), animated=True))
-        else:
-            if rec.area_light >= 0:
-                self.scene.lights[rec.area_light].shape_index = len(self.scene.shapes)
-            self.scene.shapes.append(rec)
+        for rec in make_shapes(kind, ps, o2w, self.cwd):
+            rec.material = self.gs.material
+            rec.reverse_orientation = self.gs.reverse_orientation
+            if self.gs.area_light is not None:
+                akind, aps = self.gs.area_light
+                rec.area_light = len(self.scene.lights)
+                self.scene.lights.append(LightRecord(akind if akind != "diffuse" else "area",
+                                                     aps, o2w.m.copy(), o2w.m_inv.copy()))
+            if self.current_object is not None:
+                self.objects[self.current_object].append(rec)
+            elif self.ctm.is_animated() and rec.mesh is not None and rec.area_light < 0:
+                # an animated mesh becomes an animated single-instance
+                # prototype; its vertices hold the start transform, so the
+                # instance's motion is the change from start to end
+                self.scene.prototypes.append([rec])
+                m1 = self.ctm.t[1] * self.ctm.t[0].inverse()
+                self.scene.instances.append(dict(
+                    proto=len(self.scene.prototypes) - 1,
+                    m_p2w0=np.eye(4, dtype=np.float32), m_w2p0=np.eye(4, dtype=np.float32),
+                    m_p2w1=m1.m.copy(), m_w2p1=m1.m_inv.copy(), animated=True))
+            else:
+                # a quadric (animated or not) and an emitter stay static at
+                # the start transform
+                if rec.area_light >= 0:
+                    self.scene.lights[rec.area_light].shape_index = len(self.scene.shapes)
+                self.scene.shapes.append(rec)

@@ -10,6 +10,16 @@ materials, and makes the large knot a prototype behind 64 instances on an
 8x8 grid (4,718,592 instanced triangles, the knot stored once) at 256x256;
 its animated variant moves every instance over the shutter.
 
+The sphere scene is the first configuration of BASELINE.json: one sphere of
+radius 1, matte, lit by one point light, 256x256, 02sequence at 16 spp,
+the path integrator at pbrt's default depth 5; it holds no triangle.
+
+The quadric showcase is the large bench scene plus one shape of each
+quadric kind (some cut by zmin/zmax/phimax or innerradius), a cylinder
+object instanced twice (instances of quadrics are baked), a small emitting
+sphere, a point, a spot and a distant light, and Bezier curves: cylinder
+"grass" on the floor, one flat and one ribbon curve.
+
 The PLY bench scene keeps the large scene's text, resolution, sampler and
 depth, and reads its knot, 448x112 (100,352 triangles, with normals and
 uv), from a binary little-endian PLY file written at run time; its
@@ -79,6 +89,131 @@ def bench_description(large: bool = False):
 
 def build_bench_scene(large: bool = False, device="cuda", options=None):
     return build_scene(bench_description(large), options, device)
+
+
+SPHERE_SCENE = """
+LookAt 0 0 5  0 0 0  0 1 0
+Camera "perspective" "float fov" 30
+Film "image" "integer xresolution" [256] "integer yresolution" [256]
+Sampler "02sequence" "integer pixelsamples" 16
+Integrator "path"
+WorldBegin
+LightSource "point" "point from" [2 3 4] "rgb I" [25 25 25]
+AttributeBegin
+  Material "matte" "rgb Kd" [0.5 0.5 0.5]
+  Shape "sphere" "float radius" 1
+AttributeEnd
+WorldEnd
+"""
+
+
+def build_sphere_scene(device="cuda", options=None):
+    api = Api()
+    parse_string(SPHERE_SCENE, api)
+    return build_scene(api.scene, options, device)
+
+
+QUADRICS = """
+LightSource "point" "point from" [2 3 -1] "rgb I" [6 6 6]
+LightSource "spot" "point from" [-2 4 2] "point to" [0 0 0] "float coneangle" 25
+  "float conedeltaangle" 8 "rgb I" [20 20 20]
+LightSource "distant" "point from" [-1 2 1] "point to" [0 0 0] "rgb L" [0.6 0.6 0.5]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [4 4 4]
+  Translate 0.8 1.6 0.8
+  Shape "sphere" "float radius" 0.15
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.7 0.3 0.3]
+  Translate -1.2 -0.5 1.2
+  Shape "sphere" "float radius" 0.4 "float zmin" -0.3 "float zmax" 0.35 "float phimax" 290
+AttributeEnd
+AttributeBegin
+  Material "plastic" "rgb Kd" [0.2 0.5 0.2] "rgb Ks" [0.3 0.3 0.3]
+  Translate 0 -0.99 0
+  Rotate -90 1 0 0
+  Shape "disk" "float radius" 2.2 "float innerradius" 1.6
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.3 0.3 0.7]
+  Translate -1.3 -1 -0.8
+  Rotate -90 1 0 0
+  Shape "cone" "float radius" 0.35 "float height" 0.8 "float phimax" 300
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.7 0.7 0.2]
+  Translate 1.4 -1 0.6
+  Rotate -90 1 0 0
+  Shape "paraboloid" "float radius" 0.35 "float zmin" 0.1 "float zmax" 0.7
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.3 0.7 0.7]
+  Translate 0.2 -1 1.6
+  Rotate -90 1 0 0
+  Shape "hyperboloid" "point p1" [0.3 0 0] "point p2" [0 0.3 0.6]
+AttributeEnd
+ObjectBegin "post"
+  Material "plastic" "rgb Kd" [0.5 0.4 0.3] "rgb Ks" [0.2 0.2 0.2]
+  Rotate -90 1 0 0
+  Shape "cylinder" "float radius" 0.12 "float zmin" 0 "float zmax" 0.9 "float phimax" 270
+ObjectEnd
+AttributeBegin
+  Translate 1.2 -1 -1.2
+  ObjectInstance "post"
+AttributeEnd
+AttributeBegin
+  Translate -0.4 -1 -1.6
+  Rotate 60 0 1 0
+  ObjectInstance "post"
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.8 0.8 0.8]
+  Shape "curve" "string type" "flat" "point P" [-1.5 -0.2 -1.5  -0.5 0.6 -1.5  0.5 0.6 -1.5  1.5 -0.2 -1.5]
+    "float width" 0.06
+  Shape "curve" "string type" "ribbon" "point P" [-1.5 1.2 0  -0.5 1.6 0.5  0.5 1.6 0.5  1.5 1.2 0]
+    "normal N" [0 0 1  0 1 1] "float width0" 0.08 "float width1" 0.03
+{GRASS}AttributeEnd
+"""
+
+
+def grass(n):
+    """n cylinder curves standing on the floor at y = -1, on a ring of
+    radius 1.9, each leaning outward."""
+    out = []
+    for k in range(n):
+        a = 2.0 * np.pi * k / n
+        c, s = np.cos(a), np.sin(a)
+        pts = [(1.9 * c, -1.0, 1.9 * s), (1.9 * c, -0.7, 1.9 * s),
+               (2.0 * c, -0.5, 2.0 * s), (2.15 * c, -0.35, 2.15 * s)]
+        out.append('  Shape "curve" "string type" "cylinder" "point P" [{}]\n'
+                   '    "float width0" 0.04 "float width1" 0.01\n'.format(
+                       "  ".join(" ".join(f"{x:.4f}" for x in p) for p in pts)))
+    return "".join(out)
+
+
+def quadric_scene_text(res=256, spp=4, n_grass=16) -> str:
+    """The bench scene (no knot) at res x res and spp with QUADRICS and
+    n_grass cylinder curves added before its end."""
+    return SCENE.replace("{RES}", str(res)).replace("{FLOOR_MAT}", FLOOR_PLAIN).replace(
+        "pixelsamples\" 4", f"pixelsamples\" {spp}").replace(
+        "WorldEnd", QUADRICS.replace("{GRASS}", grass(n_grass)) + "WorldEnd")
+
+
+def quadric_showcase_description():
+    """SceneDescription of the quadric showcase: the large bench scene (its
+    knot appended last, as bench_description appends it) with QUADRICS and
+    16 cylinder curves."""
+    api = Api()
+    parse_string(quadric_scene_text(), api)
+    n_u, n_v = KNOT[True]
+    api.scene.shapes.append(ShapeRecord("trianglemesh",
+                                        mesh=make_knot_mesh(n_u, n_v, scale=0.45),
+                                        material=KNOT_MATERIAL))
+    return api.scene
+
+
+def build_quadric_showcase(device="cuda", options=None):
+    return build_scene(quadric_showcase_description(), options, device)
 
 
 INSTANCED_SCENE = """

@@ -2,7 +2,9 @@
 
 `from_jax_arrays` takes the tables of a pbrt_tpu CompiledScene, already
 converted to numpy by the caller and named as in the reference (see
-ARRAY_KEYS), plus its specs as plain dicts, and builds the port's
+ARRAY_KEYS; a scene with quadrics adds n_quadrics, quad_type, quad_o2w,
+quad_w2o, quad_params, quad_prim and the primitive records prim_material,
+prim_light and prim_rev), plus its specs as plain dicts, and builds the port's
 CompiledScene on a chosen device. Tests use it so that both packages
 compute on identical tables; the port's own front end must produce tables
 equal to `tables_from_jax_arrays` of the same scene.
@@ -89,6 +91,18 @@ def tables_from_jax_arrays(a: dict) -> dict:
          "light_func_int": np.float32(a["light_distr.func_int"]),
          "world_center": np.asarray(a["world_center"], np.float32),
          "world_radius": np.float32(a["world_radius"])}
+    # the reference pads an empty quadric table with one row; its count says
+    nq = int(a.get("n_quadrics", 0))
+    qprim = np.asarray(a["quad_prim"], np.int32)[:nq] if nq else np.zeros(0, np.int32)
+    t["n_quadrics"] = nq
+    t["quad_kind"] = np.asarray(a["quad_type"], np.int32)[:nq] if nq else qprim
+    for k, shape in (("o2w", (4, 4)), ("w2o", (4, 4)), ("params", (8,))):
+        t[f"quad_{k}"] = (np.asarray(a[f"quad_{k}"], np.float32)[:nq] if nq
+                          else np.zeros((0, *shape), np.float32))
+    t["quad_prim"] = qprim
+    for k, col, dt in (("quad_mat", "prim_material", np.int32),
+                       ("quad_light", "prim_light", np.int32), ("quad_rev", "prim_rev", bool)):
+        t[k] = np.asarray(a[col], dt)[qprim] if nq else np.zeros(0, dt)
     if n_tris:
         if a["slot_attr"] is None or a["pbvh.metas"] is None:
             raise ValueError("the reference scene carries no kernel tables: "

@@ -1,8 +1,8 @@
 """Scene flattening: SceneDescription -> CompiledScene on a device (port of
 the slice's part of pbrt_tpu/scene/build.py): the global triangle table,
 the world BVH and its kernel tables, slot-keyed hit attributes, the
-instance world, material and light tables, the light power distribution,
-and the camera, film and sampler specs."""
+instance world, the quadric table, material and light tables, the light
+power distribution, and the camera, film and sampler specs."""
 from __future__ import annotations
 
 import os
@@ -17,13 +17,15 @@ from pbrt_tpu_torch.cameras import make_camera
 from pbrt_tpu_torch.core.sampling import Distribution1D
 from pbrt_tpu_torch.film import make_film
 from pbrt_tpu_torch.filters import make_filter
+from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.lights import compile_lights, light_power, L_AREA, L_INFINITE
 from pbrt_tpu_torch.materials import compile_materials
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene.api import Api, SceneDescription
 from pbrt_tpu_torch.scene.parser import parse_file, parse_string
 from pbrt_tpu_torch.scene.types import (AT_K, CompiledScene, LightTable, MaterialTable,
-                                        SceneData, SceneFlags)
+                                        QuadricTable, SceneData, SceneFlags)
+from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
 
 _PORTED_INTEGRATOR_PARAMS = {"maxdepth", "rrthreshold"}
 
@@ -33,19 +35,25 @@ def build_tables(desc: SceneDescription) -> dict:
 
     tri_attr holds the world triangles, then each prototype's triangles
     once, in prototype space. The world BVH covers the world rows only; the
-    instance world's prototype subtrees index the prototype rows."""
+    instance world's prototype subtrees index the prototype rows. Every
+    shape, mesh or quadric, is one primitive record, in shape order."""
     tri_p, tri_n, tri_uv, tri_prim, tri_has_n = [], [], [], [], []
     prim_material, prim_light, prim_rev = [], [], []
+    quads = []             # (kind, o2w, w2o, params, prim)
+    shape_quads = {}       # shape index -> (quadric row, kind, params, o2w, reversed)
     n_tri = 0
+
+    def add_prim(rec, light, rev):
+        prim_material.append(rec.material)
+        prim_light.append(light)
+        prim_rev.append(rev)
+        return len(prim_material) - 1
 
     def add_mesh(rec, light):
         """Append one mesh's rows -> its (first row, count)."""
         nonlocal n_tri
-        pid = len(prim_material)
-        prim_material.append(rec.material)
-        prim_light.append(light)
         m = rec.mesh
-        prim_rev.append(rec.reverse_orientation ^ m.transform_swaps_handedness)
+        pid = add_prim(rec, light, rec.reverse_orientation ^ m.transform_swaps_handedness)
         idx = m.indices
         T = idx.shape[0]
         tri_p.append(m.p[idx])
@@ -61,11 +69,28 @@ def build_tables(desc: SceneDescription) -> dict:
         n_tri += T
         return n_tri - T, T
 
-    shape_tri_range = {si: add_mesh(rec, rec.area_light) for si, rec in enumerate(desc.shapes)}
+    shape_tri_range = {}
+    for si, rec in enumerate(desc.shapes):
+        if rec.mesh is not None:
+            shape_tri_range[si] = add_mesh(rec, rec.area_light)
+            continue
+        rev = rec.reverse_orientation ^ Transform(rec.o2w).swaps_handedness()
+        pid = add_prim(rec, rec.area_light, rev)
+        shape_quads[si] = (len(quads), rec.quad_type, rec.quad_params, rec.o2w, rev)
+        quads.append((rec.quad_type, rec.o2w, rec.w2o, rec.quad_params, pid))
     n_world = n_tri
     proto_rows = [[add_mesh(rec, -1) for rec in precs] for precs in desc.prototypes]
 
-    out = {"n_tris": n_world, "n_world_tris": n_world}
+    out = {"n_tris": n_world, "n_world_tris": n_world, "n_quadrics": len(quads)}
+    qprim = np.array([q[4] for q in quads], np.int32)
+    out["quad_kind"] = np.array([q[0] for q in quads], np.int32)
+    out["quad_o2w"] = np.array([q[1] for q in quads], np.float32).reshape(-1, 4, 4)
+    out["quad_w2o"] = np.array([q[2] for q in quads], np.float32).reshape(-1, 4, 4)
+    out["quad_params"] = np.array([q[3] for q in quads], np.float32).reshape(-1, 8)
+    out["quad_prim"] = qprim
+    out["quad_mat"] = np.asarray(prim_material, np.int32)[qprim]
+    out["quad_light"] = np.asarray(prim_light, np.int32)[qprim]
+    out["quad_rev"] = np.asarray(prim_rev, bool)[qprim]
     tp = (np.concatenate(tri_p).astype(np.float32) if n_tri
           else np.zeros((0, 3, 3), np.float32))
     attr = np.zeros((n_tri, AT_K), np.float32)
@@ -111,8 +136,16 @@ def build_tables(desc: SceneDescription) -> dict:
             proto_gids.append(np.arange(first, last, dtype=np.int32))
         out["ibvh"] = pack_instance_world(proto_tris, proto_gids, desc.instances)
         pts += [out["ibvh"].wlo[None], out["ibvh"].whi[None]]
-    if pts:
-        allpts = np.concatenate(pts)
+    for kind, o2w, _, qp, _ in quads:
+        # each quadric's object bounds, their corners moved to world
+        qlo, qhi = quadric_object_bounds(kind, qp)
+        corners = np.array([[x, y, z] for x in (qlo[0], qhi[0])
+                            for y in (qlo[1], qhi[1]) for z in (qlo[2], qhi[2])])
+        wpts = corners @ o2w[:3, :3].T + o2w[:3, 3]
+        pts += [wpts.min(0)[None], wpts.max(0)[None]]
+    allpts = np.concatenate(pts) if pts else np.zeros((0, 3), np.float32)
+    allpts = allpts[np.abs(allpts).max(-1) < 1e29]
+    if allpts.size:
         wlo, whi = allpts.min(0), allpts.max(0)
         wc = 0.5 * (wlo + whi)
         wr = float(np.linalg.norm(whi - wlo) * 0.5 + 1e-6)
@@ -123,7 +156,7 @@ def build_tables(desc: SceneDescription) -> dict:
 
     out["mat_kind"], out["mat_const"], out["mat_misc"] = compile_materials(desc.materials)
 
-    rows, out["tri_cdf"], ltri = compile_lights(desc.lights, shape_tri_range, tp)
+    rows, out["tri_cdf"], ltri = compile_lights(desc.lights, shape_tri_range, tp, shape_quads)
     Lc = max(len(rows), 1)
     out["light_kind"] = np.zeros(Lc, np.int32)
     out["light_L"] = np.zeros((Lc, 3), np.float32)
@@ -153,6 +186,11 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
     ten = lambda a: torch.as_tensor(np.array(a), device=dev)
     ltri = t["ltri"]
     kinds = t["light_kind"][:t["n_lights"]]
+    quads = None
+    if t["n_quadrics"]:
+        quads = QuadricTable(*(ten(t[k]) for k in (
+            "quad_kind", "quad_o2w", "quad_w2o", "quad_params", "quad_prim", "quad_mat",
+            "quad_light", "quad_rev")))
     data = SceneData(
         tri_attr=ten(t["tri_attr"]),
         slot_attr=ten(t["slot_attr"]) if t["n_tris"] else None,
@@ -165,7 +203,7 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                                                t["light_func_int"], dev),
         world_center=np.asarray(t["world_center"], np.float32),
         world_radius=float(t["world_radius"]),
-        ibvh=t["ibvh"].to(dev) if "ibvh" in t else None)
+        ibvh=t["ibvh"].to(dev) if "ibvh" in t else None, quads=quads)
     flags = SceneFlags(
         n_tris=int(t["n_tris"]), n_lights=int(t["n_lights"]),
         has_infinite=bool(np.any(kinds == L_INFINITE)),
@@ -173,7 +211,8 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         infinite_light_ids=tuple(int(i) for i in np.nonzero(kinds == L_INFINITE)[0]),
         n_instances=int(t["ibvh"].iroot.shape[0]) if "ibvh" in t else 0,
         n_world_tris=int(t["n_world_tris"]),
-        any_animated_inst="ibvh" in t and bool(t["ibvh"].ianim.any()))
+        any_animated_inst="ibvh" in t and bool(t["ibvh"].ianim.any()),
+        n_quadrics=int(t["n_quadrics"]))
     return CompiledScene(data, flags, camera, film, sampler, integrator_kind,
                          dict(integrator_params))
 

@@ -1,5 +1,5 @@
-"""Scene intersection -> SurfaceInteraction (port of the triangle and
-instance paths of pbrt_tpu/scene/intersect.py).
+"""Scene intersection -> SurfaceInteraction (port of
+pbrt_tpu/scene/intersect.py without its alpha re-trace).
 
 Both launches of a path-tracing bounce go through one traversal:
 `intersect` (camera rays) and `intersect_pair` (the next rays' closest hit
@@ -12,7 +12,11 @@ reference's route through its B5 kernel), which returns them with the same
 arithmetic. Scenes with instances add one instance-walk
 launch after each traversal launch, bounded by the world hit; their hits
 are keyed by triangle row instead, and instanced hits get their frame moved
-to world. Geometry is detached: no autograd reaches the traversals.
+to world. Scenes with quadrics add the quadric pass after the walks,
+bounded by their hit: one batched op per quadric kind present over
+[lanes, quadrics of the kind], in chunks of lanes; a quadric hit's frame
+is evaluated for its lane alone. Geometry is detached: no autograd reaches
+the traversals.
 """
 from __future__ import annotations
 
@@ -25,12 +29,15 @@ from pbrt_tpu_torch.core.interaction import SurfaceInteraction, make_frame
 from pbrt_tpu_torch.core.math import normalize
 from pbrt_tpu_torch.scene.types import (AT_HASN, AT_K, AT_LIGHT, AT_MAT, AT_N, AT_P0,
                                         AT_P1, AT_P2, AT_PRIM, AT_REV, AT_UV)
+from pbrt_tpu_torch.shapes import quadrics as Q
 from pbrt_tpu_torch.shapes.triangle import triangle_shading
 
 TINY = 1e-20
 # the reference's SMEM_META_MAX: world trees with more nodes take the walk
 # that returns barycentrics (variant "packet")
 BARY_ROUTE_NODES = 1 << 15
+# lanes x quadrics of one kind in one chunk of the quadric pass
+QUAD_CHUNK = 1 << 20
 
 
 def kernel_bary(o, d, p0, p1, p2):
@@ -103,28 +110,95 @@ def _instance_pass(data, flags, o, d, t, slot, b1, b2, time):
             torch.where(hit, b2i, b2), torch.where(hit, inst_i, -1))
 
 
+def _affine(m, v, point):
+    """m [..., 4, 4] applied to v [..., 3] (+ the translation for a point),
+    component by component, so a batch of matrices against rays [N, 1, 3]
+    and one matrix per lane round alike."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    rows = [m[..., i, 0] * x + m[..., i, 1] * y + m[..., i, 2] * z for i in range(3)]
+    if point:
+        rows = [r + m[..., i, 3] for i, r in enumerate(rows)]
+    return torch.stack(rows, -1)
+
+
+def _quadric_pass(quads, o, d, t_max):
+    """Closest quadric hit of each lane below t_max -> (t [N], quadric row
+    [N], -1 on a miss; t is t_max there). On equal t the lowest row wins,
+    as in the reference's loop over the table with a strict <."""
+    n = o.shape[0]
+    best_t = torch.full((n,), vm.INF, device=o.device)
+    best_q = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    for kind, (rows, w2o, qp) in quads.by_kind.items():
+        step = max(1, QUAD_CHUNK // rows.shape[0])
+        ts, js = [], []
+        for s in range(0, n, step):
+            oq = _affine(w2o, o[s:s + step, None], True)     # [chunk, Qk, 3]
+            dq = _affine(w2o, d[s:s + step, None], False)
+            hit, t = Q.intersect_quadric(kind, qp, oq, dq, t_max[s:s + step, None], full=False)
+            t, j = torch.min(torch.where(hit, t, vm.INF), dim=1)   # first of equal minima
+            ts.append(t)
+            js.append(j)
+        t, q = torch.cat(ts), rows[torch.cat(js)]
+        better = (t < best_t) | ((t == best_t) & (q < best_q))
+        best_t = torch.where(better, t, best_t)
+        best_q = torch.where(better, q, best_q)
+    found = best_t < vm.INF
+    return torch.where(found, best_t, t_max), torch.where(found, best_q, -1)
+
+
+def _quadric_eval(quads, qi, o, d):
+    """World-space frame of each lane's hit on quadric row qi [N] ->
+    (p, n, uv, dpdu, dpdv, p_err): every kind present is evaluated on
+    every lane with the lane's parameters, and the lane's kind selected."""
+    w2o, o2w = quads.w2o[qi], quads.o2w[qi]
+    oo, od = _affine(w2o, o, True), _affine(w2o, d, False)
+    qp = quads.params[qi]
+    kind = quads.kind[qi]
+    out = None
+    for k in quads.by_kind:
+        r = Q.intersect_quadric(k, qp, oo, od, vm.INF)[2:]
+        if out is None:
+            out = r
+        else:
+            sel = (kind == k)[:, None]
+            out = [torch.where(sel, a, b) for a, b in zip(r, out)]
+    p, n, uv, dpdu, dpdv, perr = out
+    lin = o2w[:, :3, :3]
+    pw = torch.einsum("nij,nj->ni", lin, p) + o2w[:, :3, 3]
+    # normals by the inverse transpose: the w2o linear part, transposed
+    nw = normalize(torch.einsum("nij,ni->nj", w2o[:, :3, :3], n))
+    perr = torch.abs(torch.einsum("nij,nj->ni", torch.abs(lin), perr)) + 1e-5 * torch.abs(pw)
+    return (pw, nw, uv, torch.einsum("nij,nj->ni", lin, dpdu),
+            torch.einsum("nij,nj->ni", lin, dpdv), perr)
+
+
 def intersect(data, flags, o, d, t_max, time=None) -> SurfaceInteraction:
     """Closest hit of the whole wavefront -> SurfaceInteraction. time [N]
     places animated instances (None: time 0; static scenes ignore it)."""
     n = o.shape[0]
     t, slot, b1, b2 = _closest(data, flags, o, d, t_max,
                                torch.zeros(n, dtype=torch.bool, device=o.device))
-    if flags.n_instances == 0:
-        return _assemble_si(data, o, d, t, slot, b1=b1, b2=b2)
-    if time is None:
-        time = torch.zeros(n, device=o.device)
-    t, tri, b1, b2, inst = _instance_pass(data, flags, o, d, t, slot, b1, b2, time)
-    return _assemble_si(data, o, d, t, None, tri=tri, b1=b1, b2=b2, inst=inst, time=time,
-                        trs=flags.any_animated_inst)
+    tri = inst = None
+    if flags.n_instances:
+        if time is None:
+            time = torch.zeros(n, device=o.device)
+        t, tri, b1, b2, inst = _instance_pass(data, flags, o, d, t, slot, b1, b2, time)
+        slot = None
+    q_t = q_id = None
+    if flags.n_quadrics:
+        q_t, q_id = _quadric_pass(data.quads, o, d, t)
+    return _assemble_si(data, o, d, t, slot, tri=tri, b1=b1, b2=b2, inst=inst, time=time,
+                        trs=flags.any_animated_inst, q_t=q_t, q_id=q_id)
 
 
 def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
                    o_sh, d_sh, dist_sh, active_sh, time=None):
     """One traversal launch for a bounce's next rays (closest hit) and NEE
     shadow rays (any-hit), plus one instance launch in scenes with
-    instances, where both halves take the lane's time. Dead lanes of either
-    set are re-pointed at a ray that misses every root box, so they retire
-    at the root. -> (si_next [N], occluded [N])."""
+    instances, where both halves take the lane's time, and one quadric
+    pass in scenes with quadrics. Dead lanes of either set are re-pointed
+    at a ray that misses every root box, so they retire at the root, and
+    their quadric pass is bounded at 0. -> (si_next [N], occluded [N])."""
     n = o_nx.shape[0]
     roots = [b for b in (data.bvh, data.ibvh) if b is not None]
     if roots:
@@ -136,19 +210,48 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
     anyhit = torch.cat([torch.zeros_like(active_nx), torch.ones_like(active_sh)])
     o2, d2 = torch.cat([o_nx, o_sh]), torch.cat([d_nx, d_sh])
     t, slot, b1, b2 = _closest(data, flags, o2, d2, torch.cat([tmax_nx, dist_sh]), anyhit)
-    if flags.n_instances == 0:
-        occluded = active_sh & (slot[n:] >= 0)
-        if b1 is not None:
-            b1, b2 = b1[:n], b2[:n]
-        return _assemble_si(data, o_nx, d_nx, t[:n], slot[:n], b1=b1, b2=b2), occluded
-    if time is None:
-        time = torch.zeros(n, device=o_nx.device)
-    t, tri, b1, b2, inst = _instance_pass(data, flags, o2, d2, t, slot, b1, b2,
-                                          torch.cat([time, time]))
-    occluded = active_sh & (tri[n:] >= 0)
-    si = _assemble_si(data, o_nx, d_nx, t[:n], None, tri=tri[:n], b1=b1[:n], b2=b2[:n],
-                      inst=inst[:n], time=time, trs=flags.any_animated_inst)
-    return si, occluded
+    tri = inst = None
+    if flags.n_instances:
+        if time is None:
+            time = torch.zeros(n, device=o_nx.device)
+        t, tri, b1, b2, inst = _instance_pass(data, flags, o2, d2, t, slot, b1, b2,
+                                              torch.cat([time, time]))
+        occluded = tri[n:] >= 0
+        tri, inst, slot = tri[:n], inst[:n], None
+    else:
+        occluded = slot[n:] >= 0
+        slot = slot[:n]
+    q_t = q_id = None
+    if flags.n_quadrics:
+        q_t, q_id = _quadric_pass(data.quads, o2, d2,
+                                  torch.where(torch.cat([active_nx, active_sh]), t, 0.0))
+        occluded = occluded | (q_id[n:] >= 0)
+        q_t, q_id = q_t[:n], q_id[:n]
+    if b1 is not None:
+        b1, b2 = b1[:n], b2[:n]
+    si = _assemble_si(data, o_nx, d_nx, t[:n], slot, tri=tri, b1=b1, b2=b2, inst=inst,
+                      time=time, trs=flags.any_animated_inst, q_t=q_t, q_id=q_id)
+    return si, active_sh & occluded
+
+
+def intersect_p(data, flags, o, d, t_max, time=None):
+    """Any hit below t_max -> occluded [N] bool (the reference's
+    intersect_p): the world walk with every lane any-hit, the instance walk
+    and the quadric pass, each bounded by t_max."""
+    n = o.shape[0]
+    _, slot, _, _ = _closest(data, flags, o, d, t_max,
+                             torch.ones(n, dtype=torch.bool, device=o.device))
+    occluded = slot >= 0
+    if flags.n_instances:
+        if time is None:
+            time = torch.zeros(n, device=o.device)
+        tri_i = instance_traverse(data.ibvh, o.detach().contiguous(), d.detach().contiguous(),
+                                  t_max.detach().contiguous(), time.detach().contiguous(),
+                                  flags.any_animated_inst)[1]
+        occluded = occluded | (tri_i >= 0)
+    if flags.n_quadrics:
+        occluded = occluded | (_quadric_pass(data.quads, o, d, t_max)[1] >= 0)
+    return occluded
 
 
 def _instance_frame(ibvh, trs, inst, time, o, d, t, p, ng, ns, dpdu, dpdv, perr):
@@ -180,10 +283,11 @@ def _instance_frame(ibvh, trs, inst, time, o, d, t, p, ng, ns, dpdu, dpdv, perr)
 
 
 def _assemble_si(data, o, d, tri_t, slot, tri=None, b1=None, b2=None, inst=None,
-                 time=None, trs=False) -> SurfaceInteraction:
+                 time=None, trs=False, q_t=None, q_id=None) -> SurfaceInteraction:
     """One attribute row per lane -> the full surface frame: a slot_attr
     row by leaf slot, or, in scenes with instances, a tri_attr row by
-    triangle with the given barycentrics and the instance frame."""
+    triangle with the given barycentrics and the instance frame; lanes
+    with a quadric hit (q_id >= 0, at q_t) take the quadric's frame."""
     n = o.shape[0]
     if tri is None:
         hit = slot >= 0
@@ -209,12 +313,31 @@ def _assemble_si(data, o, d, tri_t, slot, tri=None, b1=None, b2=None, inst=None,
     ns_ok = has_n & ~(vm.length_squared(ns_int) < 1e-12)
     ns = torch.where(ns_ok[:, None], ns_int, ng)
     ng = vm.face_forward(ng, ns)
+    prim = attr[:, AT_PRIM].to(torch.int32)
+    material = attr[:, AT_MAT].to(torch.int32)
+    light = attr[:, AT_LIGHT].to(torch.int32)
+    rev = attr[:, AT_REV] > 0.5
+    if q_id is not None:
+        quads = data.quads
+        use_q = q_id >= 0
+        qi = torch.clamp(q_id, min=0)
+        q = _quadric_eval(quads, qi, o, d)
+        u3 = use_q[:, None]
+        p, ng, ns, uv, dpdu, dpdv, perr = (torch.where(u3, a, b) for a, b in zip(
+            (q[0], q[1], q[1], q[2], q[3], q[4], q[5]), (p, ng, ns, uv, dpdu, dpdv, perr)))
+        prim = torch.where(use_q, quads.prim[qi], prim)
+        material = torch.where(use_q, quads.material[qi], material)
+        light = torch.where(use_q, quads.light[qi], light)
+        rev = torch.where(use_q, quads.rev[qi], rev)
+        hit = hit | use_q
+        tri_t = torch.where(use_q, q_t, tri_t)
+        if inst is not None:
+            inst = torch.where(use_q, -1, inst)
     if inst is not None:
         p, ng, ns, dpdu, dpdv, perr = _instance_frame(data.ibvh, trs, inst, time, o, d, tri_t,
                                                       p, ng, ns, dpdu, dpdv, perr)
-    rev = (attr[:, AT_REV] > 0.5)[:, None]
-    ng = torch.where(rev, -ng, ng)
-    ns = torch.where(rev, -ns, ns)
+    ng = torch.where(rev[:, None], -ng, ng)
+    ns = torch.where(rev[:, None], -ns, ns)
 
     # miss lanes get benign finite values
     up = torch.tensor([0.0, 0.0, 1.0], device=o.device).expand(n, 3)
@@ -232,6 +355,5 @@ def _assemble_si(data, o, d, tri_t, slot, tri=None, b1=None, b2=None, inst=None,
     return SurfaceInteraction(
         valid=hit, t=torch.where(hit, tri_t, 1e20), p=p, p_err=perr,
         wo=normalize(-d), ng=ng, ns=ns, ss=ss, ts=ts, uv=uv, dpdu=dpdu, dpdv=dpdv,
-        prim=torch.where(hit, attr[:, AT_PRIM].to(torch.int32), neg1),
-        material=torch.where(hit, attr[:, AT_MAT].to(torch.int32), neg1),
-        area_light=torch.where(hit, attr[:, AT_LIGHT].to(torch.int32), neg1))
+        prim=torch.where(hit, prim, neg1), material=torch.where(hit, material, neg1),
+        area_light=torch.where(hit, light, neg1))

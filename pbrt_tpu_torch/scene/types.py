@@ -36,13 +36,42 @@ class MaterialTable:
 
 @dataclasses.dataclass
 class LightTable:
-    kind: torch.Tensor    # [L] int32 (L_AREA / L_INFINITE)
+    """The light rows (lights/__init__.py) and kinds, the kind ids present,
+    ascending, derived at construction."""
+    kind: torch.Tensor    # [L] int32 kind id
     L: torch.Tensor       # [L,3] radiance, pre-scaled
     params: torch.Tensor  # [L,12] (lights/__init__.py layout)
     tri_cdf: torch.Tensor  # [C] per-light triangle area CDFs, concatenated
     ltri_p0: torch.Tensor  # [C,3] emitter triangles
     ltri_p1: torch.Tensor
     ltri_p2: torch.Tensor
+    kinds: tuple = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.kinds = tuple(int(k) for k in np.unique(self.kind.cpu().numpy()))
+
+
+@dataclasses.dataclass
+class QuadricTable:
+    """The scene's quadrics, one row each (shapes/quadrics.py), and by_kind:
+    {kind: (its rows ascending [Qk] int64, their w2o [Qk,4,4], params
+    [Qk,8])}, derived at construction for the quadric pass."""
+    kind: torch.Tensor      # [Q] int32 kind id
+    o2w: torch.Tensor       # [Q,4,4] object to world
+    w2o: torch.Tensor       # [Q,4,4] world to object
+    params: torch.Tensor    # [Q,8]
+    prim: torch.Tensor      # [Q] int32 primitive record id
+    material: torch.Tensor  # [Q] int32 material id
+    light: torch.Tensor     # [Q] int32 area light id or -1
+    rev: torch.Tensor       # [Q] bool reverse orientation
+    by_kind: dict = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        kinds = self.kind.cpu().numpy()
+        self.by_kind = {}
+        for k in np.unique(kinds):
+            rows = torch.as_tensor(np.nonzero(kinds == k)[0], device=self.kind.device)
+            self.by_kind[int(k)] = (rows, self.w2o[rows], self.params[rows])
 
 
 @dataclasses.dataclass
@@ -56,6 +85,7 @@ class SceneData:
     world_center: np.ndarray            # [3]
     world_radius: float
     ibvh: Optional[InstanceBVH] = None  # the instance world; None without instances
+    quads: Optional[QuadricTable] = None  # None without quadrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +98,7 @@ class SceneFlags:
     n_instances: int = 0
     n_world_tris: int = 0        # tri_attr rows before the prototype rows
     any_animated_inst: bool = False
+    n_quadrics: int = 0
 
 
 @dataclasses.dataclass

@@ -17,7 +17,8 @@ from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.io.image_io import read_png, write_png
 from pbrt_tpu_torch.render import Options, render_sampler_integrator
 from pbrt_tpu_torch.scene import load_scene_string
-from pbrt_tpu_torch.scene.bench import SCENE, build_bench_scene, bench_description
+from pbrt_tpu_torch.scene.bench import (SCENE, SPHERE_SCENE, build_bench_scene,
+                                        bench_description, quadric_scene_text)
 from pbrt_tpu_torch.scene.bridge import from_jax_arrays, tables_from_jax_arrays
 from pbrt_tpu_torch.scene.build import build_tables
 
@@ -122,23 +123,36 @@ def test_render_driver_is_deterministic_and_finite():
 def test_smoke_scene_renders_without_jax(tmp_path):
     """A process with jax blocked imports the port and renders the
     constant-environment scene, where every pixel is sRGB 188, and the same
-    with instances and an animated triangle, which darken some pixels."""
+    with instances and an animated triangle, which darken some pixels; the
+    sphere scene of BASELINE.json's first configuration (at 16x16 and 2
+    spp), lit in the middle and black in the corners; and a scene with
+    every quadric kind, curves and point, spot and distant lights."""
+    sphere = SPHERE_SCENE.replace("[256]", "[16]").replace("pixelsamples\" 16",
+                                                            "pixelsamples\" 2")
+    quadrics = quadric_scene_text(res=16, spp=1, n_grass=2)
     scenes, outs = [], []
-    for name, text in (("smoke", SMOKE), ("instanced", INSTANCED_SMOKE)):
+    for name, text in (("smoke", SMOKE), ("instanced", INSTANCED_SMOKE), ("sphere", sphere),
+                       ("quadrics", quadrics)):
         scenes.append(tmp_path / f"{name}.pbrt")
         outs.append(tmp_path / f"{name}.png")
-        scenes[-1].write_text(text.replace("{OUT}", str(outs[-1])))
+        scenes[-1].write_text(text.replace("{OUT}", str(outs[-1])).replace(
+            "Film \"image\"", f"Film \"image\" \"string filename\" \"{outs[-1]}\""))
     code = ("import sys; sys.modules['jax'] = None; sys.modules['pbrt_tpu'] = None\n"
             "from pbrt_tpu_torch.__main__ import main\n"
             f"sys.exit(main(['--device', 'cpu', '--quiet', *{[str(p) for p in scenes]!r}]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
                          capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
+    assert res.returncode == 0 and "error" not in res.stderr, res.stderr
     img = read_png(str(outs[0]))
     assert img.shape == (8, 8, 3) and np.all(img == 188)
     img = read_png(str(outs[1]))
     assert img.shape == (8, 8, 3) and (img == 188).any() and (img < 120).sum() >= 3 * 6
+    img = read_png(str(outs[2]))
+    assert img.shape == (16, 16, 3) and np.all(img[0, 0] == 0) and np.all(img[15, 15] == 0)
+    assert img[6:10, 6:10].min() > 20
+    img = read_png(str(outs[3]))
+    assert img.shape == (16, 16, 3) and len(np.unique(img.reshape(-1, 3), axis=0)) > 50
 
 
 def test_cli_logs_a_failed_scene_and_goes_on(tmp_path, capsys):
@@ -181,12 +195,13 @@ def test_png_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("directive,what", [
-    ('Shape "sphere"', "shape 'sphere'"),
+    ('Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0] '
+     '"float alpha" [0.5]', "trianglemesh parameter 'alpha'"),
     ('Material "glass"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
      "material 'glass'"),
-    ('LightSource "point"', "light 'point'"),
+    ('LightSource "goniometric"', "light 'goniometric'"),
     ('Texture "t" "color" "checkerboard"', "Texture 't'"),
-    ('LightSource "spot"', "light 'spot'"),
+    ('LightSource "projection"', "light 'projection'"),
     ('MakeNamedMedium "m" "string type" "homogeneous"', "MakeNamedMedium 'm'"),
 ])
 def test_unported_directives_raise(directive, what):

@@ -50,7 +50,7 @@ def jax_scene_arrays(cs):
     d = cs.data
     a = lambda x: None if x is None else np.asarray(x)
     arrays = {"n_tris": cs.flags.n_tris, "n_world_tris": cs.flags.n_world_tris,
-              "n_lights": cs.flags.n_lights,
+              "n_lights": cs.flags.n_lights, "n_quadrics": cs.flags.n_quadrics,
               "tri_attr": a(d.tri_attr), "slot_attr": a(d.slot_attr),
               "world_center": a(d.world_center), "world_radius": a(d.world_radius)}
     for k in ("metas", "nodes", "tris", "order", "seed", "seed_slots", "wlo", "whi"):
@@ -58,6 +58,9 @@ def jax_scene_arrays(cs):
     for k in ("metas", "nodes", "tris", "order", "imat", "iroot", "ianim", "i2w", "w2p",
               "wlo", "whi"):
         arrays[f"ibvh.{k}"] = None if d.ibvh is None else a(getattr(d.ibvh, k))
+    for k in ("quad_type", "quad_o2w", "quad_w2o", "quad_params", "quad_prim", "prim_material",
+              "prim_light", "prim_rev"):
+        arrays[k] = a(getattr(d, k))
     for k in ("kind", "const", "misc"):
         arrays[f"mats.{k}"] = a(getattr(d.mats, k))
     for k in ("kind", "L", "params", "tri_cdf", "ltri_p0", "ltri_p1", "ltri_p2"):
