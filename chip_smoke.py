@@ -77,7 +77,25 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      depth 4): 5 B1 launches per pass, B1 bit-equal to its plain walk on
      its tree's camera and pair launches, and the quadric pass's ms on the
      pair launch (bounded by B1's hits, as the main path bounds it) beside
-     B1's pair launch on the same tree.
+     B1's pair launch on the same tree;
+  13. the differentiable pass (BASELINE config 5's stand-in, the scene of
+     tests/test_diff.py at 256x256, 02sequence at 8 spp, depth 3):
+     grad_wrt_params over every pixel, one pass a sample index, through B1
+     (4 launches a pass); the loss with the tape on bitwise equal to the
+     same loss without it; every gradient entry finite; the albedo,
+     checkerboard tex1 and light gradients of test_diff.py within 5% of
+     central differences on the card with its epsilons (albedo and light
+     positive); a 32x32 crop's gradients within 1e-3 of their largest
+     entry of the CPU's; forward and forward+backward walls (medians of
+     three), peak device memory (and its rise over what earlier phases
+     hold) and B1 launches a pass;
+  14. the textured bench scene (the large scene with an image-mapped floor
+     read from a PNG written here, a marble knot, a checkerboard wall and a
+     quad with a checkerboard alpha mask; 256x256, 4 spp, depth 4): three
+     renders after a warm-up, finite and nonzero, B1 20 launches a pass
+     (the walk and 3 alpha re-traces per intersection); one render under
+     torch.profiler; a 32x32 crop bitwise equal over two renders and close
+     to the CPU's.
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
@@ -101,9 +119,10 @@ from pbrt_tpu_torch.accel import traverse as T
 from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
 from pbrt_tpu_torch.samplers import sample_dim
-from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_instanced_bench_scene,
-                                        build_ply_bench_scene, build_quadric_showcase,
-                                        build_sphere_scene)
+from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
+                                        build_instanced_bench_scene, build_ply_bench_scene,
+                                        build_quadric_showcase, build_sphere_scene,
+                                        build_textured_bench_scene, write_floor_image)
 from pbrt_tpu_torch.scene.intersect import _quadric_pass, kernel_bary
 
 # each kernel of the JSON record: the TPU kernel it replaces and its source
@@ -193,9 +212,9 @@ def camera_launch(cs, dev):
     px = torch.as_tensor(px_np, device=dev).repeat(2)
     py = torch.as_tensor(py_np, device=dev).repeat(2)
     sidx = torch.arange(2, device=dev, dtype=torch.int32).repeat_interleave(n_pix)
-    o, d, _, _ = camera_rays(cs, px, py, sidx)
-    d = d / d.norm(dim=1, keepdim=True)
-    return o.contiguous(), d.contiguous(), sample_dim(cs.sampler, px, py, sidx, 4)
+    rays, _, _ = camera_rays(cs, px, py, sidx)
+    d = rays.d / rays.d.norm(dim=1, keepdim=True)
+    return rays.o.contiguous(), d.contiguous(), sample_dim(cs.sampler, px, py, sidx, 4)
 
 
 def shell_rays(n, dev, seed):
@@ -440,11 +459,11 @@ def render_instanced(animated, dev, card):
     return launches[1]
 
 
-def check_render(img, launches, want, label):
-    """A bench render: a finite, nonzero 256x256 image, and kernel launches
-    as in want ({kernel: count}; every other kernel none)."""
-    if tuple(img.shape) != (256, 256, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"{label} render is not a finite 256x256 image")
+def check_render(img, launches, want, label, res=256):
+    """A bench render: a finite, nonzero res x res image, and kernel
+    launches as in want ({kernel: count}; every other kernel none)."""
+    if tuple(img.shape) != (res, res, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label} render is not a finite {res}x{res} image")
     if float(img.sum()) <= 0:
         raise AssertionError(f"{label} render is black")
     want = {**dict.fromkeys(launches, 0), **want}
@@ -506,6 +525,130 @@ def render_quadric_scene(label, build, crop, want, dev, card):
     c, _, _ = render_sampler_integrator(build("cpu", crop), crop)
     check_crop(a, b, c, label)
     return cs
+
+
+def diff_pass(dev, card, res=256):
+    """Phase 13: the differentiable pass on the card, at res x res."""
+    from pbrt_tpu_torch.diff import DiffParams, get_params, grad_wrt_params, render_samples
+    n_samples, depth = 8, 3
+    t0 = time.time()
+    cs = build_diff_scene(res, dev)
+    print(f"differentiable scene built in {time.time() - t0:.2f} s: {cs.flags.n_tris} "
+          f"triangles, {cs.flags.n_quadrics} quadric, texture kinds {cs.flags.tex_kinds}")
+    xs, ys = np.meshgrid(np.arange(res), np.arange(res))
+    px, py = (torch.as_tensor(a.ravel().astype(np.int32), device=dev) for a in (xs, ys))
+
+    def loss_no_tape(c, params, px, py):
+        total = torch.zeros((), device=px.device)
+        with torch.no_grad():
+            for s in range(n_samples):
+                sidx = torch.full(px.shape, s, dtype=torch.int32, device=px.device)
+                total = total + torch.mean(render_samples(c, params, px, py, sidx, depth))
+        return total / n_samples
+
+    grad_wrt_params(build_diff_scene(32, dev), px[:1024], py[:1024], 1, depth)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # earlier phases' tensors still alive
+    zero_counts()
+    loss, grad = grad_wrt_params(cs, px, py, n_samples, depth)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**dict.fromkeys(launches, 0), "bvh_traverse": 4 * n_samples}
+    if launches != want:
+        raise AssertionError(f"differentiable pass launches {launches}, expected {want}")
+    p0 = DiffParams(*(t.detach() for t in get_params(cs)))
+    plain = loss_no_tape(cs, p0, px, py)
+    if not torch.equal(loss, plain):
+        raise AssertionError(f"loss with the tape {float(loss)!r} != without {float(plain)!r}")
+    if not all(bool(torch.isfinite(g).all()) for g in grad):
+        raise AssertionError("a gradient entry is not finite")
+    for name, table, index, eps in (("albedo", "mat_const", (1, 0, 0), 1e-3),
+                                    ("texture", "tex_params", (0, 1), 1e-3),
+                                    ("light", "light_L", (0, 1), 1e-2)):
+        bumped = []
+        for e in (eps, -eps):
+            t = getattr(p0, table).clone()
+            t[index] += e
+            bumped.append(float(loss_no_tape(cs, p0._replace(**{table: t}), px, py)))
+        fd = (bumped[0] - bumped[1]) / (2 * eps)
+        ad = float(getattr(grad, table)[index])
+        print(f"d loss / d {name} ({table}{list(index)}): autograd {ad!r}, central difference "
+              f"{fd!r} (eps {eps}), {abs(ad - fd) / max(abs(fd), 1e-4):.2e} relative")
+        if abs(ad - fd) >= 0.05 * max(abs(fd), 1e-4) or (name != "texture" and ad <= 0):
+            raise AssertionError(f"the {name} gradient disagrees with central differences")
+    walls = {"forward": [], "forward+backward": []}
+    for _ in range(3):
+        t0 = time.time()
+        loss_no_tape(cs, p0, px, py)
+        torch.cuda.synchronize()
+        walls["forward"].append(time.time() - t0)
+        t0 = time.time()
+        grad_wrt_params(cs, px, py, n_samples, depth)
+        torch.cuda.synchronize()
+        walls["forward+backward"].append(time.time() - t0)
+    c0 = res // 2 - 16
+    crop = ((ys >= c0) & (ys < c0 + 32) & (xs >= c0) & (xs < c0 + 32)).ravel()
+    got = grad_wrt_params(cs, px[crop], py[crop], n_samples, depth)[1]
+    cpu_px, cpu_py = (torch.as_tensor(a.ravel()[crop].astype(np.int32)) for a in (xs, ys))
+    want_cpu = grad_wrt_params(build_diff_scene(res, "cpu"), cpu_px, cpu_py, n_samples, depth)[1]
+    worst = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want_cpu))
+    if worst > 1e-3:
+        raise AssertionError(f"crop gradients on the card vs the CPU: {worst:.2e} of the "
+                             "largest entry")
+    print(f"differentiable pass, {res}x{res} at {n_samples} spp, depth {depth}: loss {float(loss)!r} "
+          f"bitwise equal with and without the tape; gradients finite; walls (medians of "
+          f"three) forward {sorted(walls['forward'])[1]:.3f} s, forward+backward "
+          f"{sorted(walls['forward+backward'])[1]:.3f} s; peak device memory "
+          f"{peak / 2 ** 20:.1f} MiB, {(peak - held) / 2 ** 20:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before; B1 {launches['bvh_traverse'] // n_samples} launches a pass; "
+          f"32x32 crop gradients within {worst:.2e} of the CPU's largest entry  [{card}]")
+
+
+def textured_render(dev, card, large=True):
+    """Phase 14: the textured bench scene (large: 256x256, else 64x64),
+    end to end."""
+    with tempfile.TemporaryDirectory(prefix="textured_") as tmp:
+        image = os.path.join(tmp, "floor.png")
+        write_floor_image(image)
+        t0 = time.time()
+        cs = build_textured_bench_scene(image, large, dev)
+        print(f"textured scene built in {time.time() - t0:.2f} s: {cs.flags.n_tris} triangles, "
+              f"texture kinds {cs.flags.tex_kinds}, alpha mask kinds {cs.flags.alpha_kinds}, "
+              f"atlas {tuple(cs.data.tex.atlas.shape)}")
+        crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
+        a, _, _ = render_sampler_integrator(build_textured_bench_scene(image, large, dev, crop),
+                                            crop)
+        torch.cuda.synchronize()   # the crop render is the warm-up
+        opts = Options()
+        walls = []
+        for _ in range(3):
+            zero_counts()
+            t0 = time.time()
+            img, cnt, passes = render_sampler_integrator(cs, opts)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            launches = read_counts()
+            check_render(img, launches, {"bvh_traverse": 20 * passes}, "textured",
+                         res=256 if large else 64)
+        wall = sorted(walls)[1]
+        live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
+        print(f"textured render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; "
+              f"{passes} passes, B1 {launches['bvh_traverse'] // passes} launches a pass; "
+              f"{img.shape[0] * img.shape[1] * cs.sampler.rounded_spp() / wall:.0f} samples/s, "
+              f"{live / wall / 1e6:.3f} M live rays/s ({live} live rays), mean "
+              f"{float(img.mean()):.5f}  [{card}]")
+        busy, n_kern, top, mine = profile_render(cs, opts)
+        print(f"textured render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms "
+              f"device time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; B1 "
+              f"{mine['bvh_traverse']:.3f} ms; top device ops (ms): {top}  [{card}]")
+        b, _, _ = render_sampler_integrator(build_textured_bench_scene(image, large, dev, crop),
+                                            crop)
+        c, _, _ = render_sampler_integrator(build_textured_bench_scene(image, large, "cpu", crop),
+                                            crop)
+        check_crop(a, b, c, "textured")
 
 
 def main():
@@ -779,6 +922,10 @@ def main():
           f"{min(q_ms):.3f} ms ({int((q_id >= 0).sum())} quadric hits below B1's t), B1 "
           f"{min(b1_ms):.3f} ms  [{card}]")
     del cs_q, kbq, cam_q, t_q
+
+    # ---- 13: the differentiable pass; 14: the textured bench scene ----
+    diff_pass(dev, card)
+    textured_render(dev, card)
 
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "

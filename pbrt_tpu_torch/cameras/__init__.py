@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.math import normalize, xform_point, xform_vector
+from pbrt_tpu_torch.core.ray import Rays
 from pbrt_tpu_torch.core.transform import perspective, scale, translate
 
 
@@ -56,14 +57,26 @@ def make_camera(kind: str, params: dict, cam_to_world, resolution) -> CameraSpec
                       float(params.get("shutterclose", [1.0])[0]), tuple(resolution))
 
 
-def generate_rays(spec: CameraSpec, p_film):
-    """[N,2] raster positions -> world rays (o [N,3], d [N,3]), weight [N]."""
-    n = p_film.shape[0]
-    p3 = torch.cat([p_film, torch.zeros((n, 1), dtype=p_film.dtype, device=p_film.device)], -1)
-    m = spec.raster_to_camera
+def _raster_dir(m, p3):
+    """Camera-space unit direction through raster points p3 [N,3]."""
     w = (float(m[3, 0]) * p3[:, 0] + float(m[3, 1]) * p3[:, 1]
          + float(m[3, 2]) * p3[:, 2] + float(m[3, 3]))
-    d = normalize(xform_point(m, p3) / w[:, None])
-    o = torch.zeros_like(d)
-    c2w = spec.cam_to_world
-    return xform_point(c2w, o), xform_vector(c2w, d), torch.ones_like(w)
+    return normalize(xform_point(m, p3) / w[:, None])
+
+
+def generate_rays(spec: CameraSpec, p_film, differentials: bool = False):
+    """[N,2] raster positions -> (world Rays [N], weight [N]); with
+    differentials, the rays through the raster points one pixel over in x
+    and in y ride along (the reference's generate_ray_differential)."""
+    n = p_film.shape[0]
+    p3 = torch.cat([p_film, torch.zeros((n, 1), dtype=p_film.dtype, device=p_film.device)], -1)
+    m, c2w = spec.raster_to_camera, spec.cam_to_world
+    d = _raster_dir(m, p3)
+    o = xform_point(c2w, torch.zeros_like(d))
+    rays = Rays(o, xform_vector(c2w, d))
+    if differentials:
+        step = torch.eye(3, dtype=p3.dtype, device=p3.device)
+        rays.rx_o = rays.ry_o = o
+        rays.rx_d = xform_vector(c2w, _raster_dir(m, p3 + step[0]))
+        rays.ry_d = xform_vector(c2w, _raster_dir(m, p3 + step[1]))
+    return rays, torch.ones(n, dtype=p_film.dtype, device=p_film.device)

@@ -80,6 +80,19 @@ def normalize(v):
     return v * torch.rsqrt(torch.clamp(length_squared(v), min=1e-20))[..., None]
 
 
+def lerp(t, a, b):
+    return (1.0 - t) * a + t * b
+
+
+def spherical_theta(v):
+    return torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * PI, p)
+
+
 def face_forward(n, v):
     """Flip n into the hemisphere of v."""
     return torch.where((dot(n, v) < 0.0)[..., None], -n, n)

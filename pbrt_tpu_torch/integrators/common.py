@@ -10,6 +10,7 @@ Static sampler dimension layout (the reference's):
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pbrt_tpu_torch import lights as LT
@@ -27,13 +28,18 @@ def bounce_base(bounce: int) -> int:
     return CAMERA_DIMS + BOUNCE_DIMS * bounce
 
 
-def camera_rays(cs, px, py, sample_idx):
-    """Primary rays for pixels (px, py) at sample_idx -> (o, d, weight, p_film)."""
+def camera_rays(cs, px, py, sample_idx, spp_for_diff=None):
+    """Primary rays for pixels (px, py) at sample_idx -> (Rays, weight,
+    p_film). spp_for_diff: None, no ray differentials; else the sample
+    count they are scaled for (by 1/sqrt(spp) where it is over 1)."""
     u_film = sample_2d(cs.sampler, px, py, sample_idx, 0)
     p_film = torch.stack([px.to(torch.float32) + u_film[:, 0],
                           py.to(torch.float32) + u_film[:, 1]], -1)
-    o, d, w = generate_rays(cs.camera, p_film)
-    return o, d, w, p_film
+    rays, w = generate_rays(cs.camera, p_film, differentials=spp_for_diff is not None)
+    if spp_for_diff is not None and spp_for_diff > 1:
+        # the reference's float32 1/sqrt(spp)
+        rays = rays.scaled_differentials(float(np.float32(1.0) / np.sqrt(np.float32(spp_for_diff))))
+    return rays, w, p_film
 
 
 def prepare_one_light(cs, si, lobes, active, u_sel, u_light):

@@ -47,9 +47,11 @@ def sample_pixels(film):
     return xs[order], ys[order]
 
 
+@torch.no_grad()
 def render_sampler_integrator(cs, options: Optional[Options] = None):
     """-> (image [H,W,3] linear RGB tensor on the scene's device,
-    counters {name: int} summed over all passes, number of passes)."""
+    counters {name: int} summed over all passes, number of passes). An
+    ordinary render records no autograd tape (diff/ records one)."""
     options = options or Options()
     if cs.integrator_kind != "path":
         raise NotImplementedError(f"integrator {cs.integrator_kind!r} is not ported")

@@ -2,9 +2,11 @@
 pbrt_tpu/scene/api.py). Object instances and animated meshes become shared
 prototypes behind per-instance transform pairs; a prototype that holds a
 quadric or an emitter is baked, and an animated quadric stays at its start
-transform, as in the reference. Directives the port does not cover yet
-(textures, media, TransformTimes other than 0 1) raise NotImplementedError
-naming what they met. The shapes are those of shapes/factory.py."""
+transform, as in the reference. Textures are named per graphics state,
+float and spectrum apart; a texture, a material or a mesh's alpha mask
+that names one holds its id. Directives the port does not cover yet
+(media, TransformTimes other than 0 1) raise NotImplementedError naming
+what they met. The shapes are those of shapes/factory.py."""
 from __future__ import annotations
 
 import copy
@@ -23,9 +25,20 @@ ALL_BITS = START_BIT | END_BIT
 
 
 @dataclasses.dataclass
+class TextureDecl:
+    kind: str                       # the texture class ("checkerboard", ...)
+    ttype: str                      # "float" | "spectrum"
+    params: ParamSet
+    children: Dict[str, int] = dataclasses.field(default_factory=dict)  # param -> texture id
+    world_to_texture: Optional[np.ndarray] = None   # 3D mappings
+    name: str = ""
+
+
+@dataclasses.dataclass
 class MaterialDecl:
     kind: str
     params: ParamSet
+    tex_refs: Dict[str, int] = dataclasses.field(default_factory=dict)  # param -> texture id
 
 
 @dataclasses.dataclass
@@ -57,10 +70,13 @@ class GraphicsState:
     named_materials: Dict[str, int] = dataclasses.field(default_factory=dict)
     area_light: Optional[Tuple[str, ParamSet]] = None
     reverse_orientation: bool = False
+    float_textures: Dict[str, int] = dataclasses.field(default_factory=dict)
+    spectrum_textures: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def clone(self):
         return GraphicsState(self.material, dict(self.named_materials),
-                             self.area_light, self.reverse_orientation)
+                             self.area_light, self.reverse_orientation,
+                             dict(self.float_textures), dict(self.spectrum_textures))
 
 
 class TransformSet:
@@ -83,6 +99,7 @@ class SceneDescription:
 
     def __init__(self):
         self.materials: List[MaterialDecl] = [MaterialDecl("matte", ParamSet())]
+        self.textures: List[TextureDecl] = []
         self.shapes: List[ShapeRecord] = []
         self.lights: List[LightRecord] = []
         self.camera_kind = "perspective"
@@ -224,17 +241,49 @@ class Api:
         pass
 
     # -- materials -------------------------------------------------------
+    def _texture_id(self, tname, float_first):
+        """A texture name -> its id in the graphics state, -1 if unknown."""
+        maps = (self.gs.float_textures, self.gs.spectrum_textures)
+        first, second = maps if float_first else maps[::-1]
+        return first.get(tname, second.get(tname, -1))
+
     def texture(self, name, ttype, tclass, ps):
-        raise NotImplementedError(f"Texture {name!r} ({tclass}) is not ported")
+        decl = TextureDecl(tclass, "float" if ttype == "float" else "spectrum", ps, name=name)
+        for pname in list(ps.values):
+            if ps.is_texture(pname):
+                tid = self._texture_id(ps.texture_name(pname), float_first=True)
+                if tid >= 0:
+                    decl.children[pname] = tid
+        if tclass in ("checkerboard", "dots", "fbm", "wrinkled", "windy", "marble"):
+            decl.world_to_texture = self.ctm.t[0].m_inv.copy()
+        tid = len(self.scene.textures)
+        self.scene.textures.append(decl)
+        (self.gs.float_textures if decl.ttype == "float" else self.gs.spectrum_textures)[name] = tid
+        return tid
 
     def _make_material(self, kind, ps: ParamSet) -> int:
-        for pname in ps.values:
+        decl = MaterialDecl(kind or "none", ps)
+        for pname in list(ps.values):
             if ps.is_texture(pname):
-                raise NotImplementedError(
-                    f"material {kind!r} parameter {pname!r} names a texture, "
-                    "which is not ported")
-        self.scene.materials.append(MaterialDecl(kind or "none", ps))
+                tid = self._texture_id(ps.texture_name(pname), float_first=False)
+                if tid >= 0:
+                    decl.tex_refs[pname] = tid
+        self.scene.materials.append(decl)
         return len(self.scene.materials) - 1
+
+    def _alpha_texture(self, ps: ParamSet, pname) -> int:
+        """A mesh's "alpha" / "shadowalpha" -> float texture id (-1: no
+        mask); a constant below 1 becomes a constant texture."""
+        if ps.is_texture(pname):
+            return self._texture_id(ps.texture_name(pname), float_first=True)
+        vals = ps.values.get(pname)
+        if vals and float(vals[0]) < 1.0:
+            cps = ParamSet()
+            cps.declare("float", "value", [float(vals[0])])
+            self.scene.textures.append(TextureDecl("constant", "float", cps,
+                                                   name=f"__alpha{len(self.scene.textures)}"))
+            return len(self.scene.textures) - 1
+        return -1
 
     def material(self, kind, ps):
         self.gs.material = self._make_material(kind, ps)
@@ -326,6 +375,10 @@ class Api:
         from pbrt_tpu_torch.shapes.factory import make_shapes
         o2w = self.ctm.t[0]
         for rec in make_shapes(kind, ps, o2w, self.cwd):
+            if kind in ("trianglemesh", "plymesh"):
+                rec.mesh.alpha_tex = self._alpha_texture(ps, "alpha")
+                sa = self._alpha_texture(ps, "shadowalpha")
+                rec.mesh.shadow_alpha_tex = sa if sa >= 0 else rec.mesh.alpha_tex
             rec.material = self.gs.material
             rec.reverse_orientation = self.gs.reverse_orientation
             if self.gs.area_light is not None:

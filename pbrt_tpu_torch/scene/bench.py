@@ -20,6 +20,17 @@ object instanced twice (instances of quadrics are baked), a small emitting
 sphere, a point, a spot and a distant light, and Bezier curves: cylinder
 "grass" on the floor, one flat and one ribbon curve.
 
+The differentiable scene stands in for BASELINE.json's fifth
+configuration (the reference's tests/test_diff.py scene; the configuration's
+bunny is not in the repo): a matte sphere and a checkerboard-textured
+floor under a point light and a constant environment, 02sequence, depth 3.
+
+The textured bench scene is the bench scene with a texture on every
+surface: the floor an image map (uv repeated 6x6 over it) read from a PNG
+file, the knot marble, a checkerboard wall behind the knot, and in front of
+it a quad whose alpha mask is a 6x6 checkerboard, so half of it is cut
+away and the rays through it are re-traced.
+
 The PLY bench scene keeps the large scene's text, resolution, sampler and
 depth, and reads its knot, 448x112 (100,352 triangles, with normals and
 uv), from a binary little-endian PLY file written at run time; its
@@ -89,6 +100,97 @@ def bench_description(large: bool = False):
 
 def build_bench_scene(large: bool = False, device="cuda", options=None):
     return build_scene(bench_description(large), options, device)
+
+
+KNOT_MARBLE = ('Texture "knot" "color" "marble" "float scale" 4 "float variation" 0.6\n'
+               '  Material "matte" "texture Kd" "knot"')
+FLOOR_IMAGE = ('Texture "floor" "color" "imagemap" "string filename" "{IMG}" '
+               '"float uscale" 6 "float vscale" 6\n  Material "matte" "texture Kd" "floor"')
+FLOOR_P = '"point P" [-10 -1 -10  10 -1 -10  10 -1 10  -10 -1 10]'
+QUAD_UV = '"float uv" [0 0 1 0 1 1 0 1]'
+TEXTURED_EXTRA = f"""AttributeBegin
+  Texture "wall" "color" "checkerboard" "float uscale" 8 "float vscale" 4
+    "rgb tex1" [0.8 0.8 0.7] "rgb tex2" [0.2 0.3 0.5]
+  Material "matte" "texture Kd" "wall"
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-6 -1 -3  6 -1 -3  6 4 -3  -6 4 -3] {QUAD_UV}
+AttributeEnd
+AttributeBegin
+  Texture "mask" "float" "checkerboard" "float uscale" 6 "float vscale" 6
+    "float tex1" 1 "float tex2" 0
+  Material "matte" "rgb Kd" [0.7 0.2 0.2]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-1.5 -1 1.8  1.5 -1 1.8  1.5 1.5 1.8  -1.5 1.5 1.8] {QUAD_UV}
+    "texture alpha" "mask"
+AttributeEnd
+WorldEnd"""
+
+
+DIFF_SCENE = """
+LookAt 0 4 4  0 0 0  0 1 0
+Camera "perspective" "float fov" 35
+Film "image" "integer xresolution" [{RES}] "integer yresolution" [{RES}]
+Sampler "02sequence" "integer pixelsamples" 8
+Integrator "path" "integer maxdepth" 3
+WorldBegin
+LightSource "point" "point from" [2 5 1] "rgb I" [40 40 40]
+LightSource "infinite" "rgb L" [0.2 0.2 0.25]
+AttributeBegin
+  Material "matte" "rgb Kd" [0.6 0.3 0.2]
+  Shape "sphere" "float radius" 1
+AttributeEnd
+AttributeBegin
+  Texture "check" "color" "checkerboard" "rgb tex1" [0.8 0.8 0.8] "rgb tex2" [0.2 0.2 0.2]
+  Material "matte" "texture Kd" "check"
+  Translate 0 -1 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-8 0 -8  8 0 -8  8 0 8  -8 0 8]
+AttributeEnd
+WorldEnd
+"""
+
+
+def build_diff_scene(res: int = 256, device="cuda"):
+    api = Api()
+    parse_string(DIFF_SCENE.replace("{RES}", str(res)), api)
+    return build_scene(api.scene, None, device)
+
+
+def textured_scene_text(large: bool, image: str) -> str:
+    """The textured bench scene's text (its knot is appended by
+    textured_description); image: the floor's image file."""
+    return (scene_text(large).replace(FLOOR_PLAIN, FLOOR_IMAGE.replace("{IMG}", image))
+            .replace('Material "matte" "rgb Kd" [0.6 0.4 0.3]', KNOT_MARBLE)
+            .replace(FLOOR_P, f"{FLOOR_P} {QUAD_UV}").replace("WorldEnd", TEXTURED_EXTRA))
+
+
+def write_floor_image(path, size=(192, 160), seed=0):
+    """The floor's image: soft colour blobs over tiles, seeded, as an 8-bit
+    PNG of size (width, height); not a power of two, so the atlas build
+    resamples it."""
+    from pbrt_tpu_torch.io.image_io import write_png
+    w, h = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    img = 0.25 + 0.2 * ((np.floor(xx * 8) + np.floor(yy * 8)) % 2)[..., None] * np.ones(3)
+    for c in rng.uniform(0, 1, (12, 5)):
+        blob = np.exp(-((xx - c[0]) ** 2 + (yy - c[1]) ** 2) / (0.01 + 0.02 * c[2]))
+        img = img + 0.5 * blob[..., None] * np.array([c[2], c[3], c[4]])
+    write_png(path, np.clip(img, 0, 1).astype(np.float32))
+
+
+def textured_description(large: bool, image: str):
+    api = Api()
+    parse_string(textured_scene_text(large, image), api)
+    n_u, n_v = KNOT[large]
+    api.scene.shapes.append(ShapeRecord("trianglemesh",
+                                        mesh=make_knot_mesh(n_u, n_v, scale=0.45),
+                                        material=KNOT_MATERIAL))
+    return api.scene
+
+
+def build_textured_bench_scene(image: str, large: bool = True, device="cuda", options=None):
+    return build_scene(textured_description(large, image), options, device)
 
 
 SPHERE_SCENE = """

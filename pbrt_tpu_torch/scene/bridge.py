@@ -4,7 +4,8 @@
 converted to numpy by the caller and named as in the reference (see
 ARRAY_KEYS; a scene with quadrics adds n_quadrics, quad_type, quad_o2w,
 quad_w2o, quad_params, quad_prim and the primitive records prim_material,
-prim_light and prim_rev), plus its specs as plain dicts, and builds the port's
+prim_light and prim_rev; n_textures, mats.tex and the texture table as
+TEX_KEYS), plus its specs as plain dicts, and builds the port's
 CompiledScene on a chosen device. Tests use it so that both packages
 compute on identical tables; the port's own front end must produce tables
 equal to `tables_from_jax_arrays` of the same scene.
@@ -21,6 +22,9 @@ from pbrt_tpu_torch.filters import FilterSpec
 from pbrt_tpu_torch.samplers import SamplerSpec, PORTED_KINDS
 from pbrt_tpu_torch.scene.build import scene_from_tables
 
+# the texture table's arrays (tex.<key>)
+TEX_KEYS = ("kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
+            "atlas_levels")
 ARRAY_KEYS = (
     "n_tris", "n_world_tris", "n_lights", "tri_attr", "slot_attr",
     "pbvh.metas", "pbvh.nodes", "pbvh.tris", "pbvh.order", "pbvh.seed",
@@ -29,7 +33,8 @@ ARRAY_KEYS = (
     "lights.kind", "lights.L", "lights.params", "lights.tri_cdf",
     "lights.ltri_p0", "lights.ltri_p1", "lights.ltri_p2",
     "light_distr.func", "light_distr.cdf", "light_distr.func_int",
-    "world_center", "world_radius")
+    "world_center", "world_radius", "n_textures", "mats.tex",
+    *(f"tex.{k}" for k in TEX_KEYS))
 # the instance world's arrays: present (not None) only in scenes with instances
 IBVH_KEYS = ("metas", "nodes", "tris", "order", "imat", "iroot", "ianim", "i2w", "w2p",
              "wlo", "whi")
@@ -103,6 +108,11 @@ def tables_from_jax_arrays(a: dict) -> dict:
     for k, col, dt in (("quad_mat", "prim_material", np.int32),
                        ("quad_light", "prim_light", np.int32), ("quad_rev", "prim_rev", bool)):
         t[k] = np.asarray(a[col], dt)[qprim] if nq else np.zeros(0, dt)
+    t["n_textures"] = int(a["n_textures"])
+    for k in TEX_KEYS:
+        t[f"tex_{k}"] = np.asarray(a[f"tex.{k}"], np.float32 if k in ("params", "w2t", "atlas")
+                                   else np.int32)
+    t["mat_tex"] = np.asarray(a["mats.tex"], np.int32)
     if n_tris:
         if a["slot_attr"] is None or a["pbvh.metas"] is None:
             raise ValueError("the reference scene carries no kernel tables: "

@@ -1,10 +1,12 @@
 """Scene flattening: SceneDescription -> CompiledScene on a device (port of
 the slice's part of pbrt_tpu/scene/build.py): the global triangle table,
-the world BVH and its kernel tables, slot-keyed hit attributes, the
-instance world, the quadric table, material and light tables, the light
-power distribution, and the camera, film and sampler specs."""
+the world BVH and its kernel tables, slot-keyed hit attributes (with each
+triangle's alpha-mask texture ids), the instance world, the quadric table,
+the texture table with its image atlas, material and light tables, the
+light power distribution, and the camera, film and sampler specs."""
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -23,14 +25,94 @@ from pbrt_tpu_torch.materials import compile_materials
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene.api import Api, SceneDescription
 from pbrt_tpu_torch.scene.parser import parse_file, parse_string
-from pbrt_tpu_torch.scene.types import (AT_K, CompiledScene, LightTable, MaterialTable,
-                                        QuadricTable, SceneData, SceneFlags)
+from pbrt_tpu_torch.scene.types import (AT_ALPHA, AT_K, AT_SALPHA, CompiledScene, LightTable,
+                                        MaterialTable, QuadricTable, SceneData, SceneFlags)
 from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
+from pbrt_tpu_torch.textures import KIND_IDS as TEX_KIND_IDS, T_CHECKER3D, TextureTable
+from pbrt_tpu_torch.textures.image import build_atlas, load_image
 
 _PORTED_INTEGRATOR_PARAMS = {"maxdepth", "rrthreshold"}
+_MAPPINGS = {"uv": 0, "spherical": 1, "cylindrical": 2, "planar": 3}
 
 
-def build_tables(desc: SceneDescription) -> dict:
+def compile_textures(decls, cwd="."):
+    """Host: list of TextureDecl -> texture table arrays (keys tex_kind,
+    tex_params, tex_child, tex_w2t, tex_image_id, tex_atlas,
+    tex_atlas_size, tex_atlas_levels; textures/__init__.py layout). A
+    scene without textures gets one unused constant row, as in the
+    reference. Each image file is read once; one that cannot be read is
+    logged and becomes a 2x2 grey 0.5, as the reference substitutes."""
+    X = max(len(decls), 1)
+    kind = np.zeros(X, np.int32)
+    params = np.zeros((X, 16), np.float32)
+    child = np.full((X, 2), -1, np.int32)
+    w2t = np.tile(np.eye(4, dtype=np.float32), (X, 1, 1))
+    image_id = np.full(X, -1, np.int32)
+    images, image_cache = [], {}
+    for i, d in enumerate(decls):
+        kind[i] = TEX_KIND_IDS.get(d.kind, 0)
+        ps = d.params
+        params[i, 0:3] = ps.find_one_rgb("value", ps.find_one_rgb("tex1", [1, 1, 1]))
+        params[i, 3:6] = ps.find_one_rgb("tex2", [0, 0, 0])
+        if d.kind == "bilerp":
+            params[i, 0:3] = ps.find_one_rgb("v00", [0, 0, 0])
+            params[i, 3:6] = ps.find_one_rgb("v01", [1, 1, 1])
+            params[i, 13:16] = ps.find_one_rgb("v10", [0, 0, 0])
+            params[i, 11] = ps.find_one_rgb("v11", [1, 1, 1])[0]
+        mapping = ps.find_one_string("mapping", "uv")
+        params[i, 6] = _MAPPINGS.get(mapping, 0)
+        params[i, 7] = ps.find_one_float("uscale", 1.0)
+        params[i, 8] = ps.find_one_float("vscale", 1.0)
+        params[i, 9] = ps.find_one_float("udelta", 0.0)
+        params[i, 10] = ps.find_one_float("vdelta", 0.0)
+        if d.world_to_texture is not None:
+            w2t[i] = d.world_to_texture
+        if mapping == "planar":
+            w2t[i, 0, :3] = ps.find_one_rgb("v1", [1, 0, 0])
+            w2t[i, 1, :3] = ps.find_one_rgb("v2", [0, 1, 0])
+        for pname, cid in d.children.items():
+            if pname in ("tex1", "value"):
+                child[i, 0] = cid
+            elif pname in ("tex2", "amount"):
+                child[i, 1] = cid     # a mix's amount texture takes slot 1
+        if d.kind == "mix":
+            params[i, 11] = ps.find_one_float("amount", 0.5)
+        if d.kind == "dots":
+            for pname, cid in d.children.items():
+                if pname == "inside":
+                    child[i, 0] = cid
+                elif pname == "outside":
+                    child[i, 1] = cid
+            params[i, 0:3] = ps.find_one_rgb("inside", [1, 1, 1])
+            params[i, 3:6] = ps.find_one_rgb("outside", [0, 0, 0])
+        if d.kind in ("fbm", "wrinkled", "marble", "windy"):
+            params[i, 11] = ps.find_one_float("variation", 0.2)
+            params[i, 12] = ps.find_one_float("roughness", ps.find_one_float("omega", 0.5))
+            params[i, 13] = ps.find_one_float("scale", 1.0)
+        if d.kind == "checkerboard" and ps.find_one_int("dimension", 2) == 3:
+            kind[i] = T_CHECKER3D
+        if d.kind == "imagemap":
+            fname = ps.find_one_string("filename", "")
+            path = fname if os.path.isabs(fname) else os.path.join(cwd, fname)
+            if path not in image_cache:
+                gamma = ps.find_one_bool("gamma", path.lower().endswith((".png", ".tga", ".jpg")))
+                try:
+                    img = load_image(path, gamma=gamma)
+                except (OSError, ValueError) as e:
+                    logging.getLogger(__name__).warning(
+                        "image texture %s unreadable (%s): grey 0.5 in its place", path, e)
+                    img = np.full((2, 2, 3), 0.5, np.float32)
+                image_cache[path] = len(images)
+                images.append(img)
+            image_id[i] = image_cache[path]
+            params[i, 0:3] = ps.find_one_float("scale", 1.0)
+    atlas, sizes, nlevels = build_atlas(images)
+    return {"n_textures": len(decls), "tex_kind": kind, "tex_params": params,
+            "tex_child": child, "tex_w2t": w2t, "tex_image_id": image_id, "tex_atlas": atlas,
+            "tex_atlas_size": sizes, "tex_atlas_levels": nlevels}
+
+
+def build_tables(desc: SceneDescription, cwd=".") -> dict:
     """Host numpy tables of a scene description (keys as in bridge.py).
 
     tri_attr holds the world triangles, then each prototype's triangles
@@ -38,7 +120,7 @@ def build_tables(desc: SceneDescription) -> dict:
     instance world's prototype subtrees index the prototype rows. Every
     shape, mesh or quadric, is one primitive record, in shape order."""
     tri_p, tri_n, tri_uv, tri_prim, tri_has_n = [], [], [], [], []
-    prim_material, prim_light, prim_rev = [], [], []
+    prim_material, prim_light, prim_rev, prim_alpha = [], [], [], []
     quads = []             # (kind, o2w, w2o, params, prim)
     shape_quads = {}       # shape index -> (quadric row, kind, params, o2w, reversed)
     n_tri = 0
@@ -47,6 +129,8 @@ def build_tables(desc: SceneDescription) -> dict:
         prim_material.append(rec.material)
         prim_light.append(light)
         prim_rev.append(rev)
+        prim_alpha.append((rec.mesh.alpha_tex, rec.mesh.shadow_alpha_tex)
+                          if rec.mesh is not None else (-1, -1))
         return len(prim_material) - 1
 
     def add_mesh(rec, light):
@@ -106,7 +190,7 @@ def build_tables(desc: SceneDescription) -> dict:
         attr[:, 27] = np.asarray(prim_light, np.int32)[tprim]
         attr[:, 28] = np.asarray(prim_rev, bool)[tprim]
         attr[:, 29] = np.arange(n_tri)
-        attr[:, 30:32] = -1.0
+        attr[:, 30:32] = np.asarray(prim_alpha, np.int32).reshape(-1, 2)[tprim]
     out["tri_attr"] = attr
     pts = []
     if n_world:
@@ -154,7 +238,9 @@ def build_tables(desc: SceneDescription) -> dict:
     out["world_center"] = wc.astype(np.float32)
     out["world_radius"] = np.float32(wr)
 
-    out["mat_kind"], out["mat_const"], out["mat_misc"] = compile_materials(desc.materials)
+    out.update(compile_textures(desc.textures, cwd))
+    out["mat_kind"], out["mat_const"], out["mat_misc"], out["mat_tex"] = \
+        compile_materials(desc.materials)
 
     rows, out["tri_cdf"], ltri = compile_lights(desc.lights, shape_tri_range, tp, shape_quads)
     Lc = max(len(rows), 1)
@@ -174,6 +260,16 @@ def build_tables(desc: SceneDescription) -> dict:
     return out
 
 
+def reachable_kinds(kind, child, ids):
+    """Texture kind ids of textures ids and every texture they nest."""
+    seen, todo = set(), [int(i) for i in ids]
+    while todo:
+        j = todo.pop()
+        seen.add(int(kind[j]))
+        todo += [int(c) for c in child[j] if c >= 0]
+    return tuple(sorted(seen))
+
+
 def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                       integrator_params, device) -> CompiledScene:
     """Host tables + specs -> CompiledScene with its tensors on `device`."""
@@ -186,6 +282,8 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
     ten = lambda a: torch.as_tensor(np.array(a), device=dev)
     ltri = t["ltri"]
     kinds = t["light_kind"][:t["n_lights"]]
+    alpha_ids = np.unique(t["tri_attr"][:, AT_ALPHA:AT_SALPHA + 1].astype(np.int32))
+    alpha_ids = alpha_ids[alpha_ids >= 0]
     quads = None
     if t["n_quadrics"]:
         quads = QuadricTable(*(ten(t[k]) for k in (
@@ -195,7 +293,11 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         tri_attr=ten(t["tri_attr"]),
         slot_attr=ten(t["slot_attr"]) if t["n_tris"] else None,
         bvh=t["bvh"].to(dev) if t["n_tris"] else None,
-        mats=MaterialTable(ten(t["mat_kind"]), ten(t["mat_const"]), ten(t["mat_misc"])),
+        mats=MaterialTable(ten(t["mat_kind"]), ten(t["mat_const"]), ten(t["mat_misc"]),
+                           ten(t["mat_tex"])),
+        tex=TextureTable(*(ten(t[f"tex_{k}"]) for k in (
+            "kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
+            "atlas_levels"))),
         lights=LightTable(ten(t["light_kind"]), ten(t["light_L"]), ten(t["light_params"]),
                           ten(t["tri_cdf"]), ten(ltri[:, 0]), ten(ltri[:, 1]),
                           ten(ltri[:, 2])),
@@ -212,20 +314,26 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         n_instances=int(t["ibvh"].iroot.shape[0]) if "ibvh" in t else 0,
         n_world_tris=int(t["n_world_tris"]),
         any_animated_inst="ibvh" in t and bool(t["ibvh"].ianim.any()),
-        n_quadrics=int(t["n_quadrics"]))
+        n_quadrics=int(t["n_quadrics"]),
+        tex_kinds=tuple(int(k) for k in np.unique(t["tex_kind"][:t["n_textures"]])),
+        has_tex_slot=tuple(bool(b) for b in (t["mat_tex"] >= 0).any(0)),
+        has_alpha=bool(alpha_ids.size),
+        alpha_kinds=reachable_kinds(t["tex_kind"], t["tex_child"], alpha_ids))
     return CompiledScene(data, flags, camera, film, sampler, integrator_kind,
                          dict(integrator_params))
 
 
-def build_scene(desc: SceneDescription, options=None, device="cuda", seed=0) -> CompiledScene:
-    """SceneDescription -> CompiledScene on `device`."""
+def build_scene(desc: SceneDescription, options=None, device="cuda", seed=0,
+                cwd=".") -> CompiledScene:
+    """SceneDescription -> CompiledScene on `device`; image textures are
+    read relative to cwd."""
     filt = make_filter(desc.filter_kind, desc.filter_params.as_plain_dict())
     film = make_film(desc.film_params.as_plain_dict(), filt, options)
     camera = make_camera(desc.camera_kind, desc.camera_params.as_plain_dict(),
                          desc.camera_to_world, film.full_resolution)
     sampler = make_sampler(desc.sampler_kind, desc.sampler_params.as_plain_dict(),
                            film.full_resolution, seed)
-    return scene_from_tables(build_tables(desc), camera, film, sampler,
+    return scene_from_tables(build_tables(desc, cwd), camera, film, sampler,
                              desc.integrator_kind,
                              desc.integrator_params.as_plain_dict(), device)
 
@@ -235,11 +343,11 @@ def load_scene(path: str, options=None, device="cuda", seed=0) -> CompiledScene:
     api = Api()
     api.cwd = os.path.dirname(os.path.abspath(path))
     parse_file(path, api)
-    return build_scene(api.scene, options, device, seed)
+    return build_scene(api.scene, options, device, seed, api.cwd)
 
 
 def load_scene_string(text: str, options=None, device="cuda", cwd=".", seed=0) -> CompiledScene:
     api = Api()
     api.cwd = cwd
     parse_string(text, api, cwd)
-    return build_scene(api.scene, options, device, seed)
+    return build_scene(api.scene, options, device, seed, cwd)

@@ -1,5 +1,5 @@
 """Scene intersection -> SurfaceInteraction (port of
-pbrt_tpu/scene/intersect.py without its alpha re-trace).
+pbrt_tpu/scene/intersect.py).
 
 Both launches of a path-tracing bounce go through one traversal:
 `intersect` (camera rays) and `intersect_pair` (the next rays' closest hit
@@ -15,8 +15,13 @@ are keyed by triangle row instead, and instanced hits get their frame moved
 to world. Scenes with quadrics add the quadric pass after the walks,
 bounded by their hit: one batched op per quadric kind present over
 [lanes, quadrics of the kind], in chunks of lanes; a quadric hit's frame
-is evaluated for its lane alone. Geometry is detached: no autograd reaches
-the traversals.
+is evaluated for its lane alone. Scenes with alpha-masked triangles trace
+every lane of a world walk closest-hit, then re-trace the lanes whose hit
+is masked (alpha <= 0) from just past it, ALPHA_ROUNDS times: one more
+launch of the route's walk each round; the shadow half of a pair launch
+reads the shadow mask. Geometry is detached where the reference stops its
+gradient, at the top of each entry: no autograd reaches the walks, the
+barycentrics, the quadric pass or the frames.
 """
 from __future__ import annotations
 
@@ -27,10 +32,11 @@ from pbrt_tpu_torch.accel.traverse import far_miss_rays, traverse
 from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.interaction import SurfaceInteraction, make_frame
 from pbrt_tpu_torch.core.math import normalize
-from pbrt_tpu_torch.scene.types import (AT_HASN, AT_K, AT_LIGHT, AT_MAT, AT_N, AT_P0,
-                                        AT_P1, AT_P2, AT_PRIM, AT_REV, AT_UV)
+from pbrt_tpu_torch.scene.types import (AT_ALPHA, AT_HASN, AT_K, AT_LIGHT, AT_MAT, AT_N,
+                                        AT_P0, AT_P1, AT_P2, AT_PRIM, AT_REV, AT_SALPHA, AT_UV)
 from pbrt_tpu_torch.shapes import quadrics as Q
 from pbrt_tpu_torch.shapes.triangle import triangle_shading
+from pbrt_tpu_torch.textures import eval_texture
 
 TINY = 1e-20
 # the reference's SMEM_META_MAX: world trees with more nodes take the walk
@@ -38,6 +44,7 @@ TINY = 1e-20
 BARY_ROUTE_NODES = 1 << 15
 # lanes x quadrics of one kind in one chunk of the quadric pass
 QUAD_CHUNK = 1 << 20
+ALPHA_ROUNDS = 3   # re-traces past alpha-masked hits per query
 
 
 def kernel_bary(o, d, p0, p1, p2):
@@ -77,12 +84,60 @@ def _closest(data, flags, o, d, t_max, anyhit):
     if flags.n_tris == 0:
         return (t_max, torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device),
                 None, None)
-    args = (data.bvh, o.detach().contiguous(), d.detach().contiguous(),
-            t_max.detach().contiguous(), anyhit.to(torch.uint8).contiguous())
+    args = (data.bvh, o.contiguous(), d.contiguous(), t_max.contiguous(),
+            anyhit.to(torch.uint8).contiguous())
     if data.bvh.metas.shape[0] > BARY_ROUTE_NODES:
         return traverse(*args, variant="packet")[:4]
     t, slot, _ = traverse(*args)
     return t, slot, None, None
+
+
+def _alpha_of_hit(data, flags, t, slot, b1, b2, o, d, shadow):
+    """Alpha-mask value of each lane's world hit ([N]; 1 = opaque, and on
+    misses and unmasked triangles); shadow [N] bool picks the shadow mask.
+    The texture stage is gated to the kinds the masks reach: the other
+    lanes' values are discarded, as the reference discards them."""
+    attr = data.slot_attr[torch.clamp(slot, min=0).to(torch.int64)]
+    aid = torch.where(shadow, attr[:, AT_SALPHA], attr[:, AT_ALPHA]).to(torch.int32)
+    if b1 is None:
+        b1, b2 = kernel_bary(o, d, attr[:, AT_P0:AT_P0 + 3], attr[:, AT_P1:AT_P1 + 3],
+                             attr[:, AT_P2:AT_P2 + 3])
+    b0 = 1.0 - b1 - b2
+    tuv = attr[:, AT_UV:AT_UV + 6].reshape(-1, 3, 2)
+    uv = b0[:, None] * tuv[:, 0] + b1[:, None] * tuv[:, 1] + b2[:, None] * tuv[:, 2]
+    hit = slot >= 0
+    p = o + torch.where(hit, t, 0.0)[:, None] * d   # finite on misses too
+    a = eval_texture(data.tex, aid, uv, p, kinds=flags.alpha_kinds)[:, 0]
+    return torch.where(hit & (aid >= 0), a, 1.0)
+
+
+def _closest_alpha(data, flags, o, d, t_max, anyhit, shadow):
+    """_closest, skipping alpha-masked surface points in scenes with
+    masks: every lane closest-hit, then ALPHA_ROUNDS re-traces of the
+    masked lanes from just past their hit (the others ride far-miss rays);
+    a lane still masked after the last round misses."""
+    if not flags.has_alpha or flags.n_tris == 0:
+        return _closest(data, flags, o, d, t_max, anyhit)
+    closest = torch.zeros_like(anyhit)
+    t, slot, b1, b2 = _closest(data, flags, o, d, t_max, closest)
+    fo, fd = far_miss_rays(data.bvh, o.shape[0], o.device)
+    t_off = torch.zeros_like(t)
+    oo = o
+    for _ in range(ALPHA_ROUNDS):
+        masked = (slot >= 0) & (_alpha_of_hit(data, flags, t, slot, b1, b2, oo, d, shadow)
+                                <= 0.0)
+        step = t + 1e-4 * (1.0 + torch.abs(t))
+        oo = torch.where(masked[:, None], oo + step[:, None] * d, oo)
+        t_off = torch.where(masked, t_off + step, t_off)
+        rem = torch.clamp(torch.where(masked, t_max - t_off, 1.0), min=0.0)
+        m3 = masked[:, None]
+        got = _closest(data, flags, torch.where(m3, oo, fo), torch.where(m3, d, fd), rem,
+                       closest)
+        t, slot = torch.where(masked, got[0], t), torch.where(masked, got[1], slot)
+        if b1 is not None:
+            b1, b2 = torch.where(masked, got[2], b1), torch.where(masked, got[3], b2)
+    still = (slot >= 0) & (_alpha_of_hit(data, flags, t, slot, b1, b2, oo, d, shadow) <= 0.0)
+    return torch.where(still, t_max, t + t_off), torch.where(still, -1, slot), b1, b2
 
 
 def _instance_pass(data, flags, o, d, t, slot, b1, b2, time):
@@ -103,8 +158,8 @@ def _instance_pass(data, flags, o, d, t, slot, b1, b2, time):
             b1, b2 = kernel_bary(o, d, attr[:, AT_P0:AT_P0 + 3], attr[:, AT_P1:AT_P1 + 3],
                                  attr[:, AT_P2:AT_P2 + 3])
     ti, tri_i, b1i, b2i, inst_i, _ = instance_traverse(
-        data.ibvh, o.detach().contiguous(), d.detach().contiguous(),
-        t.detach().contiguous(), time.detach().contiguous(), flags.any_animated_inst)
+        data.ibvh, o.contiguous(), d.contiguous(), t.contiguous(), time.contiguous(),
+        flags.any_animated_inst)
     hit = tri_i >= 0
     return (torch.where(hit, ti, t), torch.where(hit, tri_i, tri), torch.where(hit, b1i, b1),
             torch.where(hit, b2i, b2), torch.where(hit, inst_i, -1))
@@ -176,8 +231,9 @@ def intersect(data, flags, o, d, t_max, time=None) -> SurfaceInteraction:
     """Closest hit of the whole wavefront -> SurfaceInteraction. time [N]
     places animated instances (None: time 0; static scenes ignore it)."""
     n = o.shape[0]
-    t, slot, b1, b2 = _closest(data, flags, o, d, t_max,
-                               torch.zeros(n, dtype=torch.bool, device=o.device))
+    o, d, t_max = o.detach(), d.detach(), t_max.detach()
+    no = torch.zeros(n, dtype=torch.bool, device=o.device)
+    t, slot, b1, b2 = _closest_alpha(data, flags, o, d, t_max, no, no)
     tri = inst = None
     if flags.n_instances:
         if time is None:
@@ -200,6 +256,8 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
     at a ray that misses every root box, so they retire at the root, and
     their quadric pass is bounded at 0. -> (si_next [N], occluded [N])."""
     n = o_nx.shape[0]
+    o_nx, d_nx, tmax_nx = o_nx.detach(), d_nx.detach(), tmax_nx.detach()
+    o_sh, d_sh, dist_sh = o_sh.detach(), d_sh.detach(), dist_sh.detach()
     roots = [b for b in (data.bvh, data.ibvh) if b is not None]
     if roots:
         fo, fd = far_miss_rays(roots[0], n, o_nx.device, *roots[1:])
@@ -209,7 +267,8 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
         d_sh = torch.where(active_sh[:, None], d_sh, fd)
     anyhit = torch.cat([torch.zeros_like(active_nx), torch.ones_like(active_sh)])
     o2, d2 = torch.cat([o_nx, o_sh]), torch.cat([d_nx, d_sh])
-    t, slot, b1, b2 = _closest(data, flags, o2, d2, torch.cat([tmax_nx, dist_sh]), anyhit)
+    t, slot, b1, b2 = _closest_alpha(data, flags, o2, d2, torch.cat([tmax_nx, dist_sh]),
+                                     anyhit, anyhit)
     tri = inst = None
     if flags.n_instances:
         if time is None:
@@ -236,17 +295,19 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
 
 def intersect_p(data, flags, o, d, t_max, time=None):
     """Any hit below t_max -> occluded [N] bool (the reference's
-    intersect_p): the world walk with every lane any-hit, the instance walk
-    and the quadric pass, each bounded by t_max."""
+    intersect_p): the world walk with every lane any-hit (with alpha masks,
+    closest-hit past the masked points, under the shadow masks), the
+    instance walk and the quadric pass, each bounded by t_max."""
     n = o.shape[0]
-    _, slot, _, _ = _closest(data, flags, o, d, t_max,
-                             torch.ones(n, dtype=torch.bool, device=o.device))
+    o, d, t_max = o.detach(), d.detach(), t_max.detach()
+    yes = torch.ones(n, dtype=torch.bool, device=o.device)
+    _, slot, _, _ = _closest_alpha(data, flags, o, d, t_max, yes, yes)
     occluded = slot >= 0
     if flags.n_instances:
         if time is None:
             time = torch.zeros(n, device=o.device)
-        tri_i = instance_traverse(data.ibvh, o.detach().contiguous(), d.detach().contiguous(),
-                                  t_max.detach().contiguous(), time.detach().contiguous(),
+        tri_i = instance_traverse(data.ibvh, o.contiguous(), d.contiguous(),
+                                  t_max.contiguous(), time.contiguous(),
                                   flags.any_animated_inst)[1]
         occluded = occluded | (tri_i >= 0)
     if flags.n_quadrics:

@@ -99,6 +99,9 @@ class ParamSet:
     def is_texture(self, name):
         return self.types.get(name) == "texture"
 
+    def texture_name(self, name):
+        return self.find_one_string(name, "")
+
     def as_plain_dict(self):
         return dict(self.values)
 

@@ -11,6 +11,7 @@ import torch
 from pbrt_tpu_torch.accel.instance import InstanceBVH
 from pbrt_tpu_torch.accel.traverse import KernelBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D
+from pbrt_tpu_torch.textures import TextureTable
 
 # tri_attr / slot_attr column layout (the reference's AT_*)
 AT_P0, AT_P1, AT_P2 = 0, 3, 6   # vertices
@@ -22,8 +23,8 @@ AT_MAT = 26         # material id
 AT_LIGHT = 27       # area light id or -1
 AT_REV = 28         # reverse-orientation flag (0/1)
 AT_TRI = 29         # original triangle id (-1 on padded slot rows)
-AT_ALPHA = 30       # alpha-mask texture id (-1; masks are not ported)
-AT_SALPHA = 31
+AT_ALPHA = 30       # alpha-mask texture id (-1: none)
+AT_SALPHA = 31      # shadow-ray alpha-mask texture id
 AT_K = 32
 
 
@@ -32,6 +33,7 @@ class MaterialTable:
     kind: torch.Tensor    # [M] int32 (M_MATTE / M_PLASTIC)
     const: torch.Tensor   # [M, N_SLOTS, 3] constant slot values
     misc: torch.Tensor    # [M, 8]: eta, remaproughness, ...
+    tex: torch.Tensor     # [M, N_SLOTS] int32 texture id of each slot (-1: its constant)
 
 
 @dataclasses.dataclass
@@ -80,6 +82,7 @@ class SceneData:
     slot_attr: Optional[torch.Tensor]   # [L*8, AT_K] rows by leaf slot
     bvh: Optional[KernelBVH]            # over the world rows; None without any
     mats: MaterialTable
+    tex: TextureTable
     lights: LightTable
     light_distr: Distribution1D         # power-weighted light selection
     world_center: np.ndarray            # [3]
@@ -99,6 +102,10 @@ class SceneFlags:
     n_world_tris: int = 0        # tri_attr rows before the prototype rows
     any_animated_inst: bool = False
     n_quadrics: int = 0
+    tex_kinds: Tuple[int, ...] = ()      # texture kind ids in the table, ascending
+    has_tex_slot: Tuple[bool, ...] = ()  # per material slot: some material textures it
+    has_alpha: bool = False              # some triangle has an alpha mask
+    alpha_kinds: Tuple[int, ...] = ()    # texture kinds the alpha masks reach
 
 
 @dataclasses.dataclass

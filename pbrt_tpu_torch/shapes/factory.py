@@ -15,8 +15,8 @@ QUADRIC_KINDS = frozenset(Q.KIND_NAMES)
 
 def make_shapes(kind: str, ps, o2w, cwd: str = "."):
     """The records of one Shape directive under object-to-world o2w; a PLY
-    file that is missing is logged and gives none. Alpha masks on meshes
-    raise NotImplementedError."""
+    file that is missing is logged and gives none. Alpha masks on a
+    loopsubdiv surface raise NotImplementedError."""
     from pbrt_tpu_torch.scene.api import ShapeRecord
     from pbrt_tpu_torch.shapes.triangle import TriangleMeshData, mesh_from_params
     if kind in QUADRIC_KINDS:
@@ -31,7 +31,7 @@ def make_shapes(kind: str, ps, o2w, cwd: str = "."):
     if kind not in ("plymesh", "loopsubdiv"):
         raise ValueError(f"unknown shape kind {kind!r}")
     for name in ("alpha", "shadowalpha"):
-        if name in ps:
+        if kind == "loopsubdiv" and name in ps:
             raise NotImplementedError(f"{kind} parameter {name!r} is not ported")
     if kind == "plymesh":
         from pbrt_tpu_torch.shapes.ply import read_ply

@@ -20,13 +20,15 @@ class TriangleMeshData:
     n: Optional[np.ndarray] = None   # [V,3]
     uv: Optional[np.ndarray] = None  # [V,2]
     transform_swaps_handedness: bool = False
+    alpha_tex: int = -1              # alpha-mask texture id (-1: none)
+    shadow_alpha_tex: int = -1       # the same for shadow rays
 
 
 def mesh_from_params(ps, object_to_world) -> TriangleMeshData:
-    """From a 'trianglemesh' ParamSet. Alpha masks and tangents raise."""
-    for name in ("alpha", "shadowalpha", "S"):
-        if name in ps:
-            raise NotImplementedError(f"trianglemesh parameter {name!r} is not ported")
+    """From a 'trianglemesh' ParamSet (its alpha masks are resolved by
+    scene/api.py). Tangents raise."""
+    if "S" in ps:
+        raise NotImplementedError("trianglemesh parameter 'S' is not ported")
     params = ps.as_plain_dict()
     indices = np.asarray(params["indices"], np.int32).reshape(-1, 3)
     p = object_to_world.point(np.asarray(params["P"], np.float32).reshape(-1, 3))

@@ -1,5 +1,6 @@
-"""The BVH (2- and 4-wide) and instance traversal kernels on the card, in a
-process without JAX.
+"""The BVH (2- and 4-wide) and instance traversal kernels on the card, and
+the differentiable and textured paths that launch them, in a process
+without JAX.
 
 Run on a machine with an NVIDIA GPU (`--noconftest` skips tests/conftest.py,
 which configures JAX; nothing here imports it):
@@ -31,7 +32,8 @@ def _launch_rays(cs, dev):
     """A camera launch (every pixel, sample 0) followed by a pair launch of
     20,001 random rays, closest-hit then any-hit: odd N, zero components."""
     px, py = (torch.as_tensor(a, device=dev) for a in sample_pixels(cs.film))
-    o_c, d_c, _, _ = camera_rays(cs, px, py, torch.zeros_like(px))
+    rays, _, _ = camera_rays(cs, px, py, torch.zeros_like(px))
+    o_c, d_c = rays.o, rays.d
     d_c = d_c / d_c.norm(dim=1, keepdim=True)
     o_r, d_r = (torch.as_tensor(a, device=dev) for a in rays_at_knot(20_001, seed=31))
     n_c, n_r = o_c.shape[0], o_r.shape[0]
@@ -350,3 +352,46 @@ def test_walk_from_a_leaf_root(variant):
     assert launches == 1 and int((got[1] >= 0).sum()) > 50
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_gradients_on_the_card_match_the_cpu():
+    """grad_wrt_params on the differentiable scene at 16x16, 4 samples,
+    depth 2: the card's loss within 1e-5 relative of the CPU's and each
+    gradient table within 1e-4 of its largest entry (the same paths; the
+    card sums in another order), every entry finite."""
+    needs_cuda()
+    from pbrt_tpu_torch.diff import grad_wrt_params
+    from pbrt_tpu_torch.scene.bench import build_diff_scene
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xs, ys = np.meshgrid(np.arange(16), np.arange(16))
+        px, py = (torch.as_tensor(a.ravel().astype(np.int32), device=dev) for a in (xs, ys))
+        out[dev] = grad_wrt_params(build_diff_scene(16, dev), px, py, n_samples=4, max_depth=2)
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(float(lc) - float(lp)) <= 1e-5 * float(lp)
+    for a, b in zip(gc, gp):
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_textured_render_takes_the_alpha_rounds(tmp_path):
+    """The small textured bench scene on the card: B1 launches 4 times an
+    intersection (the walk and ALPHA_ROUNDS re-traces), 20 a pass at depth
+    4; the image is finite and nonzero and its 8x8 crop close to the CPU's
+    (>= 99% of pixels within rtol 1e-3 / atol 1e-4)."""
+    needs_cuda()
+    from pbrt_tpu_torch.scene.bench import build_textured_bench_scene, write_floor_image
+    image = str(tmp_path / "floor.png")
+    write_floor_image(image, size=(48, 40))
+    opts = Options(crop_window=(0.375, 0.5, 0.375, 0.5))
+    before = T.traverse.launches
+    img, cnt, passes = render_sampler_integrator(
+        build_textured_bench_scene(image, large=False, device="cuda", options=opts), opts)
+    torch.cuda.synchronize()
+    assert T.traverse.launches - before == 20 * passes
+    assert torch.isfinite(img).all() and float(img.sum()) > 0
+    cpu, _, _ = render_sampler_integrator(
+        build_textured_bench_scene(image, large=False, device="cpu", options=opts), opts)
+    a, c = img.cpu().numpy(), cpu.numpy()
+    assert np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean() >= 0.99

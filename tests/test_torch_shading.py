@@ -108,7 +108,8 @@ def test_compute_lobes_matches_reference(scenes):
     _, jcs, cs = scenes
     n = 512
     mat = np.random.default_rng(2).integers(-1, cs.data.mats.kind.shape[0], n).astype(np.int32)
-    lb = compute_lobes(cs.data.mats, torch.as_tensor(mat))
+    lb = compute_lobes(cs.data.mats, cs.data.tex, torch.as_tensor(mat), torch.zeros((n, 2)),
+                       torch.zeros((n, 3)), None, cs.flags.has_tex_slot, cs.flags.tex_kinds)
     z2 = jnp.zeros((n, 2))
     ref = j_compute_lobes(jcs.data.mats, jcs.data.tex, jnp.asarray(mat), z2, jnp.zeros((n, 3)),
                           jnp.zeros(n), (False,) * 10)
@@ -218,11 +219,11 @@ def test_generate_rays_matches_reference(scenes):
     n = 4096
     rng = np.random.default_rng(14)
     p_film = rng.uniform(0, 64, (n, 2)).astype(np.float32)
-    o, d, w = generate_rays(cs.camera, torch.as_tensor(p_film))
+    got, w = generate_rays(cs.camera, torch.as_tensor(p_film), differentials=True)
     rays, jw = j_generate_rays(jcs.camera, CameraSamples(jnp.asarray(p_film), jnp.zeros((n, 2)),
                                                          jnp.zeros(n)))
-    close(o, rays.o)
-    close(d, rays.d)
+    for k in ("o", "d", "rx_o", "rx_d", "ry_o", "ry_d"):
+        close(getattr(got, k), getattr(rays, k))
     close(w, jw)
 
 

@@ -61,8 +61,12 @@ def jax_scene_arrays(cs):
     for k in ("quad_type", "quad_o2w", "quad_w2o", "quad_params", "quad_prim", "prim_material",
               "prim_light", "prim_rev"):
         arrays[k] = a(getattr(d, k))
-    for k in ("kind", "const", "misc"):
+    for k in ("kind", "const", "misc", "tex"):
         arrays[f"mats.{k}"] = a(getattr(d.mats, k))
+    for k in ("kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
+              "atlas_levels"):
+        arrays[f"tex.{k}"] = a(getattr(d.tex, k))
+    arrays["n_textures"] = d.tex.kind.shape[0] if cs.flags.tex_kinds else 0
     for k in ("kind", "L", "params", "tri_cdf", "ltri_p0", "ltri_p1", "ltri_p2"):
         arrays[f"lights.{k}"] = a(getattr(d.lights, k))
     for k in ("func", "cdf", "func_int"):
