@@ -95,7 +95,18 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      renders after a warm-up, finite and nonzero, B1 20 launches a pass
      (the walk and 3 alpha re-traces per intersection); one render under
      torch.profiler; a 32x32 crop bitwise equal over two renders and close
-     to the CPU's.
+     to the CPU's;
+  15. BASELINE config 3 (scene/bench.py ENV_SCENE, written here: the large
+     bench knot as copper metal, read from a PLY file, a mix floor of a
+     checkerboard matte and a uv-textured plastic, a glass sphere and a
+     mirror quad under a 512x256 environment map with a sun; 256x256, 16
+     spp, depth 5): three renders after a warm-up, finite and nonzero, B1 6
+     launches a pass; one render under torch.profiler; a 32x32 crop bitwise
+     equal over two renders and close to the CPU's;
+  16. the all-kinds scene (64x64, orthographic: one sphere of each ported
+     material kind, a fourier table, a goniometric and a projection light
+     with maps written here, the spatial light strategy): the same checks
+     at 64x64 with a 32x32 crop.
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
@@ -122,7 +133,9 @@ from pbrt_tpu_torch.samplers import sample_dim
 from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
                                         build_instanced_bench_scene, build_ply_bench_scene,
                                         build_quadric_showcase, build_sphere_scene,
-                                        build_textured_bench_scene, write_floor_image)
+                                        build_textured_bench_scene, write_all_kinds_scene,
+                                        write_env_material_scene, write_floor_image)
+from pbrt_tpu_torch.scene.build import load_scene
 from pbrt_tpu_torch.scene.intersect import _quadric_pass, kernel_bary
 
 # each kernel of the JSON record: the TPU kernel it replaces and its source
@@ -651,6 +664,50 @@ def textured_render(dev, card, large=True):
         check_crop(a, b, c, "textured")
 
 
+def scene_file_render(label, path, res, crop, b1_per_pass, dev, card):
+    """Phases 15 and 16: one scene file end to end on the card: three
+    timed renders after a warm-up, each finite and nonzero with B1
+    b1_per_pass launches a pass and no other kernel; one render under
+    torch.profiler; the crop bitwise equal over two renders and close to
+    the CPU crop."""
+    t0 = time.time()
+    cs = load_scene(path, None, dev)
+    f = cs.flags
+    print(f"{label} scene built in {time.time() - t0:.2f} s: {f.n_tris} triangles, "
+          f"{cs.data.bvh.metas.shape[0]} nodes, {f.n_quadrics} quadrics, material kinds "
+          f"{f.mat_kinds}, lobe families {f.bsdf_fams}, fourier {f.has_fourier}, light kinds "
+          f"{cs.data.lights.kinds}, environment map "
+          f"{None if cs.data.lights.env is None else tuple(cs.data.lights.env.image.shape)}, "
+          f"light strategy {f.light_strategy}")
+    copt = Options(crop_window=crop)
+    a, _, _ = render_sampler_integrator(load_scene(path, copt, dev), copt)
+    torch.cuda.synchronize()   # the crop render is the warm-up
+    opts = Options()
+    walls = []
+    for _ in range(3):
+        zero_counts()
+        t0 = time.time()
+        img, cnt, passes = render_sampler_integrator(cs, opts)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        launches = read_counts()
+        check_render(img, launches, {"bvh_traverse": b1_per_pass * passes}, label, res=res)
+    wall = sorted(walls)[1]
+    live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
+    print(f"{label} render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; "
+          f"{passes} passes, B1 {launches['bvh_traverse'] // passes} launches a pass; "
+          f"{res * res * cs.sampler.rounded_spp() / wall:.0f} samples/s, "
+          f"{live / wall / 1e6:.3f} M live rays/s ({live} live rays), mean "
+          f"{float(img.mean()):.5f}  [{card}]")
+    busy, n_kern, top, mine = profile_render(cs, opts)
+    print(f"{label} render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device "
+          f"time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; B1 "
+          f"{mine['bvh_traverse']:.3f} ms; top device ops (ms): {top}  [{card}]")
+    b, _, _ = render_sampler_integrator(load_scene(path, copt, dev), copt)
+    c, _, _ = render_sampler_integrator(load_scene(path, copt, "cpu"), copt)
+    check_crop(a, b, c, label)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -926,6 +983,14 @@ def main():
     # ---- 13: the differentiable pass; 14: the textured bench scene ----
     diff_pass(dev, card)
     textured_render(dev, card)
+
+    # ---- 15: BASELINE config 3; 16: the all-kinds scene ----
+    with tempfile.TemporaryDirectory(prefix="config3_") as tmp:
+        scene_file_render("config 3", write_env_material_scene(tmp, large=True), 256,
+                          (0.5, 0.625, 0.5, 0.625), 6, dev, card)
+    with tempfile.TemporaryDirectory(prefix="all_kinds_") as tmp:
+        scene_file_render("all kinds", write_all_kinds_scene(tmp), 64,
+                          (0.25, 0.75, 0.25, 0.75), 6, dev, card)
 
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "

@@ -102,3 +102,93 @@ class Distribution1D:
             return torch.zeros(index.shape, dtype=torch.float32, device=index.device)
         denom = torch.tensor(self.func_int, dtype=torch.float32) * self.count
         return self.func[index] / denom.item()
+
+
+@dataclasses.dataclass
+class Distribution2D:
+    """2D piecewise-constant distribution (the environment map's importance
+    sampling): row-conditional CDFs [h, w+1] and the marginal CDF over rows
+    [h+1]. A row whose integral is 0 keeps a flat CDF and gets pdf 0."""
+    cond_func: torch.Tensor     # [h, w]
+    cond_cdf: torch.Tensor      # [h, w+1]
+    cond_int: torch.Tensor      # [h]
+    marg_func: torch.Tensor     # [h]
+    marg_cdf: torch.Tensor      # [h+1]
+    marg_int: float             # on the host, and as a 0-dim tensor beside it
+    marg_int_t: torch.Tensor = None
+
+    def __post_init__(self):
+        if self.marg_int_t is None:
+            self.marg_int_t = torch.tensor(self.marg_int, dtype=torch.float32,
+                                           device=self.marg_func.device)
+
+    @staticmethod
+    def tables(f):
+        """Host numpy (cond_func, cond_cdf, cond_int, marg_func, marg_cdf,
+        marg_int) of f [h, w], as the reference builds them."""
+        f = np.maximum(np.asarray(f, np.float32), 0.0)
+        h, w = f.shape
+        cond_cdf = np.concatenate([np.zeros((h, 1), np.float32),
+                                   np.cumsum(f, -1, dtype=np.float64).astype(np.float32) / w],
+                                  -1)
+        cond_int = cond_cdf[:, -1].copy()
+        safe = np.where(cond_int > 0, cond_int, 1.0)
+        cond_cdf = np.where(cond_int[:, None] > 0, cond_cdf / safe[:, None],
+                            np.linspace(0, 1, w + 1, dtype=np.float32)[None])
+        cond_cdf[:, -1] = 1.0
+        marg_cdf = np.concatenate(
+            [[0.0], np.cumsum(cond_int, dtype=np.float64).astype(np.float32) / h])
+        marg_int = marg_cdf[-1].copy()
+        if marg_int > 0:
+            marg_cdf = marg_cdf / marg_int
+        else:
+            marg_cdf = np.linspace(0, 1, h + 1, dtype=np.float32)
+        marg_cdf[-1] = 1.0
+        return (f, cond_cdf.astype(np.float32), cond_int, cond_int,
+                marg_cdf.astype(np.float32), np.float32(marg_int))
+
+    @staticmethod
+    def from_tables(cond_func, cond_cdf, cond_int, marg_func, marg_cdf, marg_int,
+                    device) -> "Distribution2D":
+        t = lambda a: torch.as_tensor(np.array(a, np.float32), device=device)
+        return Distribution2D(t(cond_func), t(cond_cdf), t(cond_int), t(marg_func),
+                              t(marg_cdf), float(np.float32(marg_int)))
+
+    def indices(self, u):
+        """The row and column u [N, 2] falls in -> (iy, ix, the row's CDF
+        [N, w+1]): the count of CDF entries <= u, less one, clamped."""
+        h, w = self.cond_func.shape
+        iy = torch.clamp(torch.searchsorted(self.marg_cdf, u[:, 1].contiguous(), right=True) - 1,
+                         0, h - 1)
+        row = self.cond_cdf[iy]
+        ix = torch.clamp(torch.searchsorted(row, u[:, 0, None].contiguous(), right=True)[:, 0] - 1,
+                         0, w - 1)
+        return iy, ix, row
+
+    def sample_continuous(self, u):
+        """u [N, 2] -> ((x, y) in [0,1)^2 [N, 2], pdf [N])."""
+        h, w = self.cond_func.shape
+        iy, ix, row = self.indices(u)
+        c0, c1 = self.marg_cdf[iy], self.marg_cdf[iy + 1]
+        ok = c1 > c0
+        dy = torch.where(ok, (u[:, 1] - c0) / torch.where(ok, c1 - c0, 1.0), 0.0)
+        pdf_y = self.marg_func[iy] / self.marg_int_t if self.marg_int > 0 else \
+            torch.zeros_like(dy)
+        y = (iy.to(torch.float32) + dy) / h
+        ux = u[:, 0]
+        r0 = row.gather(1, ix[:, None])[:, 0]
+        r1 = row.gather(1, (ix + 1)[:, None])[:, 0]
+        ok = r1 > r0
+        dx = torch.where(ok, (ux - r0) / torch.where(ok, r1 - r0, 1.0), 0.0)
+        ci = self.cond_int[iy]
+        pdf_x = torch.where(ci > 0, self.cond_func[iy, ix] / torch.where(ci > 0, ci, 1.0), 0.0)
+        x = (ix.to(torch.float32) + dx) / w
+        return torch.stack([x, y], -1), pdf_x * pdf_y
+
+    def pdf(self, uv):
+        h, w = self.cond_func.shape
+        ix = torch.clamp((uv[:, 0] * w).to(torch.int64), 0, w - 1)
+        iy = torch.clamp((uv[:, 1] * h).to(torch.int64), 0, h - 1)
+        if self.marg_int <= 0:
+            return torch.zeros_like(uv[:, 0])
+        return self.cond_func[iy, ix] / self.marg_int_t

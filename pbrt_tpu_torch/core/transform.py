@@ -108,6 +108,11 @@ def look_at(eye, look, up):
     return Transform(c2w.astype(np.float32))
 
 
+def orthographic(znear, zfar):
+    """Camera-to-screen orthographic projection."""
+    return scale([1.0, 1.0, 1.0 / (zfar - znear)]) * translate([0.0, 0.0, -znear])
+
+
 def perspective(fov_deg, n, f):
     """Camera-to-screen perspective projection."""
     persp = np.array([[1, 0, 0, 0], [0, 1, 0, 0],

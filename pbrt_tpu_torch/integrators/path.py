@@ -2,6 +2,11 @@
 (port of pbrt_tpu/integrators/path.py without its subsurface and spectral
 branches).
 
+Mix materials draw their pick at dimension base + 0 (only where the table
+holds a mix); transmission through glass, translucent and fourier lobes
+tracks eta^2 for Russian roulette (only where a transmitting family is
+present); the spatial light strategy reads the previous vertex.
+
 Every bounce runs intersect -> material -> NEE -> BSDF sample over the
 whole [N] wavefront with masked lanes. The camera rays take one traversal
 launch; each later bounce takes one merged launch for the next rays and
@@ -25,7 +30,7 @@ from pbrt_tpu_torch.core.sampling import power_heuristic
 from pbrt_tpu_torch.integrators.common import (bounce_base, camera_rays, infinite_pdf_for_dir,
                                                light_pdf_for_dir, prepare_one_light)
 from pbrt_tpu_torch.materials import bsdf as B
-from pbrt_tpu_torch.materials import compute_lobes
+from pbrt_tpu_torch.materials import M_MIX, compute_lobes
 from pbrt_tpu_torch.samplers import sample_2d, sample_dim
 from pbrt_tpu_torch.scene.intersect import intersect, intersect_pair
 from pbrt_tpu_torch.textures import T_IMAGEMAP
@@ -53,6 +58,10 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
     specular_bounce = torch.ones(n, dtype=torch.bool, device=dev)
     prev_bsdf_pdf = torch.zeros(n, device=dev)
     t_max = torch.full((n,), vm.INF, device=dev)
+    prev_p = o if flags.light_strategy == "spatial" else None
+    eta_scale = None
+    ftab = data.fourier if flags.has_fourier else None
+    fams = flags.bsdf_fams
     cnt = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in COUNTERS}
     cnt["camera_rays"] += n
 
@@ -64,14 +73,16 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         base = bounce_base(bounce)
         if track_diff:
             si = compute_differentials(si, diff_rays)
+        wd = None
         if flags.has_infinite:
             esc = active & ~si.valid
-            le_inf = LT.le_escaped(data.lights, flags.infinite_light_ids, normalize(d))
+            wd = normalize(d)
+            le_inf = LT.le_escaped(data.lights, flags.infinite_light_ids, wd)
             if bounce == 0:
                 w = torch.ones(n, device=dev)
             else:
                 w = torch.where(specular_bounce, 1.0, power_heuristic(
-                    1.0, prev_bsdf_pdf, 1.0, infinite_pdf_for_dir(cs, n, dev)))
+                    1.0, prev_bsdf_pdf, 1.0, infinite_pdf_for_dir(cs, wd, prev_p)))
             L = L + torch.where(esc[:, None], beta * le_inf * w[:, None], 0.0)
         if flags.has_area_lights:
             hit_l = active & si.valid & (si.area_light >= 0)
@@ -80,7 +91,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
                 w = torch.ones(n, device=dev)
             else:
                 w = torch.where(specular_bounce, 1.0, power_heuristic(
-                    1.0, prev_bsdf_pdf, 1.0, light_pdf_for_dir(cs, si, si.area_light)))
+                    1.0, prev_bsdf_pdf, 1.0,
+                    light_pdf_for_dir(cs, prev_p, wd, si, si.area_light)))
             L = L + torch.where(hit_l[:, None], beta * le * w[:, None], 0.0)
 
         active = active & si.valid
@@ -88,8 +100,10 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         if bounce == max_depth:
             break
 
+        u_mix = sample_dim(spec, px, py, sample_idx, base + 0) if M_MIX in flags.mat_kinds \
+            else None
         lobes = compute_lobes(data.mats, data.tex, si.material, si.uv, si.p, si.duv,
-                              flags.has_tex_slot, flags.tex_kinds)
+                              flags.has_tex_slot, flags.tex_kinds, u_mix, fams, flags.mat_kinds)
 
         # NEE: light sample now, occlusion in the merged launch below
         u_sel = sample_dim(spec, px, py, sample_idx, base + 1)
@@ -102,7 +116,7 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         # BSDF sampling
         u_lobe = sample_dim(spec, px, py, sample_idx, base + 4)
         u_dir = sample_2d(spec, px, py, sample_idx, base + 5)
-        bs = B.bsdf_sample(lobes, si.world_to_local(si.wo), u_lobe, u_dir)
+        bs = B.bsdf_sample(lobes, si.world_to_local(si.wo), u_lobe, u_dir, ftab, fams)
         wi_world = si.local_to_world(bs.wi)
         cos_w = vm.absdot(wi_world, si.ns)
         ok = active & (bs.pdf > 0.0) & ~B.black(bs.f)
@@ -112,16 +126,21 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         active = ok
         specular_bounce = bs.is_specular
         if track_diff:
-            # no transmission lobe is ported: every specular scatter reflects
+            trans = bs.is_transmission if bs.is_transmission is not None \
+                else torch.zeros_like(ok)
             diff_rays = specular_diff_rays(si, diff_rays, wi_world, bs.is_specular & ok,
-                                           torch.zeros_like(ok), lobes.eta)
+                                           trans, lobes.eta)
         prev_bsdf_pdf = bs.pdf
+        if bs.eta_scale is not None:
+            eta_scale = bs.eta_scale if eta_scale is None else eta_scale * bs.eta_scale
+        if prev_p is not None:
+            prev_p = si.p
         o = si.spawn_origin(wi_world)
         d = wi_world
 
-        # Russian roulette (no transmission lobe: eta_scale stays 1)
+        # Russian roulette
         if bounce > 3:
-            rr_beta = vm.max_component(beta)
+            rr_beta = vm.max_component(beta if eta_scale is None else beta * eta_scale[:, None])
             u_rr = sample_dim(spec, px, py, sample_idx, base + 7)
             q = torch.clamp(1.0 - rr_beta, min=0.05)
             do_rr = rr_beta < rr_threshold

@@ -1,11 +1,14 @@
-"""Light table, sampling and emission (port of pbrt_tpu/lights/__init__.py
-for the point, spot and distant lights, the diffuse area light on meshes
-and quadrics, and the constant infinite light).
+"""Light table, sampling and emission (port of pbrt_tpu/lights/__init__.py):
+point, spot, projection, goniometric and distant lights, the diffuse area
+light on meshes and quadrics, and the infinite light, constant or with an
+environment map.
 
 params layout [L, 12]:
   POINT:    [0:3] world position
   SPOT:     [0:3] position, [3:6] world direction, [6] cos of the cone
             angle, [7] cos of the start of the falloff
+  PROJECTION, GONIO: [0:3] position, [3:6] world z axis, [6] cos fov,
+            [7] tan(fov / 2), [8] map id (-1: none), [9] map h / w
   DISTANT:  [3:6] world direction toward the light
   AREA:     [0] 1 on a mesh, 0 on a quadric, [1] quadric row, [2] first
             emitter triangle, [3] their count, [4] total area,
@@ -13,27 +16,35 @@ params layout [L, 12]:
   INFINITE: [8] image id (-1 = constant)
 A quadric emitter is sampled by area through a tessellation built with the
 scene (shapes/quadrics.py tessellate_quadric); its hits are the analytic
-ones. Projection and goniometric lights, environment maps and the other
-light-selection strategies raise NotImplementedError.
+ones. An environment map is looked up in the light's frame (w2l) as an
+equirect image and importance-sampled by a luminance * sin(theta)
+Distribution2D; projection and goniometric maps are resampled to 64x64
+tiles by nearest index, as in the reference. Code for a light kind, an
+environment map or a light map runs only in scenes that hold one.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 
 import numpy as np
 import torch
 
 from pbrt_tpu_torch.core import math as vm
-from pbrt_tpu_torch.core.math import cross, dot, INV_4PI
+from pbrt_tpu_torch.core.math import cross, dot, normalize, vec3, INV_4PI, PI
 from pbrt_tpu_torch.core.sampling import uniform_sample_sphere, uniform_sample_triangle
 from pbrt_tpu_torch.core.spectrum import RGB_TO_Y
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.shapes.quadrics import tessellate_quadric
 
 L_POINT, L_SPOT, L_PROJECTION, L_GONIO, L_DISTANT, L_AREA, L_INFINITE = range(7)
-KIND_IDS = {"point": L_POINT, "spot": L_SPOT, "distant": L_DISTANT, "area": L_AREA,
+KIND_IDS = {"point": L_POINT, "spot": L_SPOT, "projection": L_PROJECTION,
+            "goniometric": L_GONIO, "distant": L_DISTANT, "area": L_AREA,
             "infinite": L_INFINITE, "exinfinite": L_INFINITE}
 DELTA_KINDS = (L_POINT, L_SPOT, L_PROJECTION, L_GONIO, L_DISTANT)
+POINT_FAMILY = (L_POINT, L_SPOT, L_PROJECTION, L_GONIO)
+MAP_RES = 64   # projection / goniometric map tiles
 
 
 @dataclasses.dataclass
@@ -57,11 +68,32 @@ def _emitter_triangles(lr, shape_tri_range, tp, shape_quads):
     return None
 
 
-def compile_lights(lights, shape_tri_range, tp, shape_quads):
-    """Host: LightRecords -> (rows, tri_cdf, ltri [C,3,3]); rows are
-    (kind, L, params). tp [T,3,3] holds the scene triangles; shape_quads
-    maps a quadric shape's index to (its row, kind, params, o2w, reversed)."""
-    rows, cdfs, ltris = [], [], []
+def _read_light_map(path):
+    """A projection / goniometric map -> (64x64x3 tile by nearest index,
+    h / w), or None where it cannot be read (logged)."""
+    from pbrt_tpu_torch.io.image_io import read_image
+    try:
+        img = np.asarray(read_image(path), np.float32)
+    except (OSError, ValueError) as e:
+        logging.getLogger(__name__).warning("light map %s unreadable (%s): no map", path, e)
+        return None
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, -1)
+    ys = np.linspace(0, img.shape[0] - 1, MAP_RES).astype(int)
+    xs = np.linspace(0, img.shape[1] - 1, MAP_RES).astype(int)
+    return img[ys][:, xs, :3], img.shape[0] / max(img.shape[1], 1)
+
+
+def compile_lights(lights, shape_tri_range, tp, shape_quads, cwd="."):
+    """Host: LightRecords -> dict(rows [(kind, L, params, l2w, w2l)],
+    tri_cdf, ltri [C,3,3], maps [K,64,64,3] or None, env [H,W,3] or None).
+    tp [T,3,3] holds the scene triangles; shape_quads maps a quadric
+    shape's index to (its row, kind, params, o2w, reversed). An environment
+    map that cannot be read is logged and its light is constant, as the
+    reference treats it."""
+    from pbrt_tpu_torch.io.image_io import read_image
+    rows, cdfs, ltris, maps = [], [], [], []
+    env = None
     for lr in lights:
         ps = lr.params
         params = np.zeros(12, np.float32)
@@ -83,6 +115,19 @@ def compile_lights(lights, shape_tri_range, tp, shape_quads):
             delta = ps.find_one_float("conedeltaangle", 5.0)
             params[6] = np.cos(np.radians(cone))
             params[7] = np.cos(np.radians(cone - delta))
+        elif kid in (L_PROJECTION, L_GONIO):
+            L = ps.find_one_rgb("I", [1, 1, 1]) * scale
+            params[0:3] = np.asarray(t.point([0, 0, 0]))
+            params[3:6] = np.asarray(t.vector([0, 0, 1.0]))
+            fov = ps.find_one_float("fov", 45.0)
+            params[6] = np.cos(np.radians(fov))
+            params[7] = np.tan(np.radians(fov) * 0.5)
+            mapname = ps.find_one_string("mapname", "")
+            got = _read_light_map(os.path.join(cwd, mapname)) if mapname else None
+            if got is not None:
+                params[8] = len(maps)
+                params[9] = got[1]
+                maps.append(got[0])
         elif kid == L_DISTANT:
             L = ps.find_one_rgb("L", [1, 1, 1]) * scale
             w = (np.asarray(t.point(ps.find_one_rgb("from", [0, 0, 0])))
@@ -106,24 +151,62 @@ def compile_lights(lights, shape_tri_range, tp, shape_quads):
             ltris.append(light_tris.astype(np.float32))
         else:
             L = ps.find_one_rgb("L", [1, 1, 1]) * scale
-            if ps.find_one_string("mapname", ""):
-                raise NotImplementedError("infinite light 'mapname' (environment map) is not ported")
-        rows.append((kid, np.asarray(L, np.float32), params))
-    tri_cdf = np.concatenate(cdfs) if cdfs else np.zeros(1, np.float32)
-    ltri = np.concatenate(ltris) if ltris else np.zeros((1, 3, 3), np.float32)
-    return rows, tri_cdf, ltri
+            mapname = ps.find_one_string("mapname", "")
+            if mapname:
+                path = mapname if os.path.isabs(mapname) else os.path.join(cwd, mapname)
+                try:
+                    env = np.asarray(read_image(path), np.float32)
+                    params[8] = 0
+                except (OSError, ValueError) as e:
+                    logging.getLogger(__name__).warning(
+                        "environment map %s unreadable (%s): constant light", path, e)
+        rows.append((kid, np.asarray(L, np.float32), params, lr.l2w, lr.w2l))
+    return {"rows": rows,
+            "tri_cdf": np.concatenate(cdfs) if cdfs else np.zeros(1, np.float32),
+            "ltri": np.concatenate(ltris) if ltris else np.zeros((1, 3, 3), np.float32),
+            "maps": np.stack(maps).astype(np.float32) if maps else None, "env": env}
 
 
-def light_power(kind, L_rgb, params, world_radius):
+def env_tables(env):
+    """Host: an equirect environment image [H,W,3] (or None) -> the
+    reference's luminance * sin(theta) tables (func [H,W], cond_cdf
+    [H,W+1], cond_int [H], marg_cdf [H+1], marg_int) and the mean
+    luminance for the power distribution. A row of zero integral keeps a
+    zero CDF ending in 1, as the reference builds it."""
+    img = np.zeros((1, 1, 3), np.float32) if env is None else env
+    H, W = img.shape[:2]
+    lum = img @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+    sin_w = np.sin((np.arange(H) + 0.5) / H * np.pi).astype(np.float32)
+    f2d = (lum * sin_w[:, None]).astype(np.float32)
+    cond_cdf = np.concatenate([np.zeros((H, 1), np.float32),
+                               np.cumsum(f2d, -1, dtype=np.float64).astype(np.float32) / W], -1)
+    cond_int = cond_cdf[:, -1].copy()
+    cond_cdf = cond_cdf / np.where(cond_int > 0, cond_int, 1.0)[:, None]
+    cond_cdf[:, -1] = 1.0
+    marg_cdf = np.concatenate([[0.0], np.cumsum(cond_int, dtype=np.float64).astype(np.float32)
+                               / H]).astype(np.float32)
+    marg_int = float(marg_cdf[-1])
+    if marg_int > 0:
+        marg_cdf = marg_cdf / marg_int
+    marg_cdf[-1] = 1.0
+    env_mean = float(lum.mean()) if H > 1 else 1.0
+    return {"env_func": f2d, "env_cond_cdf": cond_cdf.astype(np.float32),
+            "env_cond_int": cond_int, "env_marg_cdf": marg_cdf.astype(np.float32),
+            "env_marg_int": np.float32(marg_int)}, env_mean
+
+
+def light_power(kind, L_rgb, params, world_radius, env_mean=1.0):
     """Approximate power for the selection distribution."""
     y = float(np.dot(L_rgb, RGB_TO_Y))
-    if kind == L_POINT:
+    if kind in (L_POINT, L_PROJECTION, L_GONIO):
         return 4.0 * np.pi * y
     if kind == L_SPOT:
         return 2.0 * np.pi * (1.0 - 0.5 * (params[6] + params[7])) * y
     if kind == L_AREA:
         return params[4] * np.pi * y * (2.0 if params[5] > 0.5 else 1.0)
-    return np.pi * world_radius * world_radius * y   # distant, infinite
+    if kind == L_INFINITE:
+        return np.pi * world_radius * world_radius * y * env_mean
+    return np.pi * world_radius * world_radius * y   # distant
 
 
 def _spot_falloff(cos_w, cos_total, cos_falloff):
@@ -131,6 +214,55 @@ def _spot_falloff(cos_w, cos_total, cos_falloff):
                     0.0, 1.0)
     return torch.where(cos_w < cos_total, 0.0,
                        torch.where(cos_w > cos_falloff, 1.0, (d * d) * (d * d)))
+
+
+def _texel(x, n):
+    """Float texel coordinate -> index in [0, n): truncated as the
+    reference's int cast, clamped first so that no out-of-range or NaN
+    value reaches the conversion (NaN takes texel 0)."""
+    return torch.clamp(torch.nan_to_num(x, nan=0.0), 0.0, n - 1.0).to(torch.int64)
+
+
+def _lane_xform(m, v):
+    """Per-lane [N,4,4] matrices' upper 3x3 applied to vectors [N,3]."""
+    return vec3(*(m[:, i, 0] * v[:, 0] + m[:, i, 1] * v[:, 1] + m[:, i, 2] * v[:, 2]
+                  for i in range(3)))
+
+
+def _is(kind, ids, kinds):
+    """kind is one of ids; only the ids the table holds are compared."""
+    out = None
+    for k in ids:
+        if k in kinds:
+            out = (kind == k) if out is None else out | (kind == k)
+    return out
+
+
+def _map_modulation(lights, kind, pr, li_idx, dir_world):
+    """Projection / goniometric map factor of a point-family light's
+    emission along world direction dir_world (light to receiver): the
+    projection's frustum texel (0 outside it), the goniometric (phi,
+    theta) texel, 1 for every other lane."""
+    imgid = pr[:, 8].to(torch.int64)
+    dl = normalize(_lane_xform(lights.w2l[li_idx], dir_world))
+    dxl, dyl, dzl = dl[:, 0], dl[:, 1], dl[:, 2]
+    tanh = torch.clamp(pr[:, 7], min=1e-6)
+    aspect = torch.where(pr[:, 9] > 0, pr[:, 9], 1.0)
+    zs = torch.where(torch.abs(dzl) > 1e-6, dzl, 1e-6)
+    s = dxl / (zs * tanh) * 0.5 + 0.5
+    t = dyl / (zs * tanh * aspect) * 0.5 + 0.5
+    inside = (dzl > 0) & (s >= 0) & (s <= 1) & (t >= 0) & (t <= 1)
+    theta = torch.acos(torch.clamp(dzl, -1.0, 1.0))
+    phi = torch.atan2(dyl, dxl)
+    phi = torch.where(phi < 0, phi + 2.0 * np.pi, phi)
+    is_proj = kind == L_PROJECTION
+    K, Hh, Ww = lights.limg.shape[:3]
+    ix = _texel(torch.where(is_proj, s, phi / (2.0 * np.pi)) * Ww, Ww)
+    iy = _texel(torch.where(is_proj, t, theta / np.pi) * Hh, Hh)
+    mval = lights.limg.reshape(K * Hh * Ww, 3)[(torch.clamp(imgid, 0, K - 1) * Hh + iy) * Ww + ix]
+    has = imgid >= 0
+    return torch.where((is_proj & has)[:, None], torch.where(inside[:, None], mval, 0.0),
+                       torch.where(((kind == L_GONIO) & has)[:, None], mval, 1.0))
 
 
 def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
@@ -142,10 +274,11 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
     Lv = lights.L[li_idx]
     pr = lights.params[li_idx]
     n = ref_p.shape[0]
+    mapped = _is(kind, (L_PROJECTION, L_GONIO), kinds)
     # candidates in the order point family, distant, area, infinite; the
     # last one present is the default of the selection below
     picks = []
-    if L_POINT in kinds or L_SPOT in kinds:
+    if any(k in kinds for k in POINT_FAMILY):
         pos = pr[:, 0:3]
         to_l = pos - ref_p
         d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
@@ -154,7 +287,10 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
         if L_SPOT in kinds:
             fall = _spot_falloff(dot(-wi, pr[:, 3:6]), pr[:, 6], pr[:, 7])
             li = torch.where((kind == L_SPOT)[:, None], li * fall[:, None], li)
-        picks.append(((kind == L_POINT) | (kind == L_SPOT),
+        if lights.limg is not None:
+            li = li * _map_modulation(lights, kind, pr, li_idx, -wi)
+        fam = (kind == L_POINT) | (kind == L_SPOT)
+        picks.append((fam if mapped is None else fam | mapped,
                       LiSample(wi, li, torch.ones(n, device=ref_p.device), pos, None)))
     if L_DISTANT in kinds:
         w = pr[:, 3:6]
@@ -163,11 +299,17 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
     if L_AREA in kinds:
         picks.append((kind == L_AREA, _sample_area(lights, li_idx, ref_p, u2)))
     if L_INFINITE in kinds:
-        # constant infinite light: uniform sphere
+        # constant: uniform sphere; a map: its Distribution2D
         wi_c = uniform_sample_sphere(u2)
-        picks.append((kind == L_INFINITE,
-                      LiSample(wi_c, Lv, torch.full((n,), INV_4PI, device=ref_p.device),
-                               ref_p + wi_c * (2.0 * world_radius), None)))
+        s = LiSample(wi_c, Lv, torch.full((n,), INV_4PI, device=ref_p.device), None, None)
+        if lights.env is not None:
+            wi_m, li_m, pdf_m = _sample_env(lights, li_idx, u2, Lv)
+            has_map = (pr[:, 8] >= 0)
+            s = LiSample(torch.where(has_map[:, None], wi_m, wi_c),
+                         torch.where(has_map[:, None], li_m, Lv),
+                         torch.where(has_map, pdf_m, s.pdf), None, None)
+        s.p_light = ref_p + s.wi * (2.0 * world_radius)
+        picks.append((kind == L_INFINITE, s))
     _, out = picks[-1]
     for sel, s in reversed(picks[:-1]):
         s3 = sel[:, None]
@@ -175,8 +317,30 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
                        torch.where(sel, s.pdf, out.pdf),
                        torch.where(s3, s.p_light, out.p_light), None)
     is_delta = (kind == L_POINT) | (kind == L_SPOT) | (kind == L_DISTANT)
+    if mapped is not None:
+        is_delta = is_delta | mapped
     return LiSample(out.wi, out.li, torch.where(light_idx < 0, 0.0, out.pdf), out.p_light,
                     is_delta)
+
+
+def _sample_env(lights, li_idx, u2, Lv):
+    """Environment-map importance sample -> (world wi, li, solid-angle
+    pdf); zeros from a 1x1 map, as in the reference."""
+    env = lights.env
+    H, W = env.image.shape[:2]
+    if H <= 1:
+        z = torch.zeros_like(Lv)
+        return z, z, z[:, 0]
+    uv, map_pdf = env.distr.sample_continuous(u2)
+    theta = uv[:, 1] * PI
+    phi = uv[:, 0] * 2.0 * PI
+    sin_t = torch.sin(theta)
+    w_l = vec3(sin_t * torch.cos(phi), sin_t * torch.sin(phi), torch.cos(theta))
+    wi = _lane_xform(lights.l2w[li_idx], w_l)
+    pdf = torch.where(sin_t > 1e-7, map_pdf / (2.0 * PI * PI * torch.clamp(sin_t, min=1e-7)),
+                      0.0)
+    ix, iy = _texel(uv[:, 0] * W, W), _texel(uv[:, 1] * H, H)
+    return wi, env.image.reshape(H * W, 3)[iy * W + ix] * Lv, pdf
 
 
 def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
@@ -219,23 +383,52 @@ def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
     return LiSample(wi, li, torch.where(emits, pdf, 0.0), p, None)
 
 
-def pdf_li(lights, light_idx, hit_t, hit_cos):
-    """Solid-angle pdf that sample_li gives direction wi toward light
-    light_idx; for area lights the caller passes the hit's t and |cos|.
-    Delta lights have none (0)."""
+def pdf_li(lights, light_idx, hit_t, hit_cos, wi=None):
+    """Solid-angle pdf that sample_li gives direction wi [N,3] toward light
+    light_idx; for area lights the caller passes the hit's t and |cos| (wi
+    is read only where the scene has an environment map). Delta lights
+    have none (0)."""
     li_idx = torch.clamp(light_idx, min=0)
     kind = lights.kind[li_idx]
     total_area = torch.clamp(lights.params[li_idx, 4], min=1e-12)
     pdf_area = hit_t * hit_t / torch.clamp(hit_cos, min=1e-9) / total_area
-    return torch.where(kind == L_AREA, pdf_area,
-                       torch.where(kind == L_INFINITE, INV_4PI, 0.0))
+    pdf_inf = INV_4PI
+    if lights.env is not None:
+        pdf_inf = torch.where(lights.params[li_idx, 8] >= 0, _env_pdf(lights, li_idx, wi),
+                              INV_4PI)
+    return torch.where(kind == L_AREA, pdf_area, torch.where(kind == L_INFINITE, pdf_inf, 0.0))
+
+
+def _env_pdf(lights, li_idx, wi):
+    """The environment map's solid-angle pdf of world directions wi."""
+    env = lights.env
+    H, W = env.image.shape[:2]
+    w_l = _lane_xform(lights.w2l[li_idx], wi)
+    if H <= 1:
+        return torch.zeros_like(wi[:, 0])
+    theta, phi = vm.spherical_theta(w_l), vm.spherical_phi(w_l)
+    sin_t = torch.sin(theta)
+    iu, iv = _texel(phi / (2 * PI) * W, W), _texel(theta / PI * H, H)
+    f = env.distr.cond_func.reshape(-1)[iv * W + iu]
+    return torch.where(sin_t > 1e-7, f / torch.clamp(env.distr.marg_int_t, min=1e-12)
+                       / (2.0 * PI * PI * torch.clamp(sin_t, min=1e-7)), 0.0)
 
 
 def le_escaped(lights, infinite_ids, rd):
-    """Sum of the infinite lights' radiance along escaped directions rd."""
+    """Sum of the infinite lights' radiance along escaped directions rd;
+    a mapped light's texel is looked up in its own frame."""
     total = torch.zeros_like(rd)
     for li in infinite_ids:
-        total = total + lights.L[li]
+        if li not in lights.mapped:
+            total = total + lights.L[li]
+            continue
+        H, W = lights.env.image.shape[:2]
+        if H <= 1:
+            continue
+        w_l = vm.xform_vector(lights.w2l_host[li], rd)
+        theta, phi = vm.spherical_theta(w_l), vm.spherical_phi(w_l)
+        iu, iv = _texel(phi / (2 * PI) * W, W), _texel(theta / PI * H, H)
+        total = total + lights.env.image.reshape(H * W, 3)[iv * W + iu] * lights.L[li]
     return total
 
 

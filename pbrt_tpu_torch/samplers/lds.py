@@ -103,3 +103,24 @@ def sobol_sample_u32(index: torch.Tensor, dim_matrix, bits: int = SOBOL_BITS):
     for b in range(bits):
         v = v ^ (((index >> b) & 1) * int(dim_matrix[b]))
     return v
+
+
+def radical_inverse(base: int, index) -> torch.Tensor:
+    """Van der Corput radical inverse of u32 indices in `base` -> float32
+    in [0, 1): base 2 by bit reversal, other bases by accumulating the
+    digits in float32 (as the reference does; digits below float32's
+    precision drop out)."""
+    from pbrt_tpu_torch.samplers.hashing import ONE_MINUS_EPS, reverse_bits32, u32
+    index = u32(torch.as_tensor(np.asarray(index)))
+    if base == 2:
+        return torch.clamp(reverse_bits32(index).to(torch.float32)
+                           * np.float32(2.3283064365386963e-10), max=ONE_MINUS_EPS)
+    inv_base = np.float32(1.0 / base)
+    inv = torch.zeros(index.shape, dtype=torch.float32)
+    factor = torch.tensor(inv_base)
+    for _ in range(int(np.ceil(32 / np.log2(base)))):
+        nxt = index // base
+        inv = inv + (index - nxt * base).to(torch.float32) * factor
+        factor = factor * inv_base
+        index = nxt
+    return torch.clamp(inv, max=ONE_MINUS_EPS)

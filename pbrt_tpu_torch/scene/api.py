@@ -39,6 +39,7 @@ class MaterialDecl:
     kind: str
     params: ParamSet
     tex_refs: Dict[str, int] = dataclasses.field(default_factory=dict)  # param -> texture id
+    children: Tuple[int, int] = (-1, -1)   # a mix's two materials
 
 
 @dataclasses.dataclass
@@ -268,6 +269,9 @@ class Api:
                 tid = self._texture_id(ps.texture_name(pname), float_first=False)
                 if tid >= 0:
                     decl.tex_refs[pname] = tid
+        if kind == "mix":
+            decl.children = tuple(self.gs.named_materials.get(
+                ps.find_one_string(f"namedmaterial{i}", ""), 0) for i in (1, 2))
         self.scene.materials.append(decl)
         return len(self.scene.materials) - 1
 

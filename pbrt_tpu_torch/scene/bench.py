@@ -31,6 +31,24 @@ file, the knot marble, a checkerboard wall behind the knot, and in front of
 it a quad whose alpha mask is a 6x6 checkerboard, so half of it is cut
 away and the rays through it are re-traced.
 
+The environment-material scene is BASELINE.json's third configuration:
+textured materials and microfacet metal / plastic under an infinite
+environment light with MIS. The large bench knot (73,728 triangles, read
+from a PLY file) is copper metal at roughness 0.15; the floor is a mix of
+a checkerboard matte and a plastic whose Kd is the "uv" texture; a smooth
+glass sphere and a mirror quad stand beside the knot; no area light: the
+light is a seeded 512x256 equirect EXR, a sky gradient with a sun patch
+about 200x brighter. 256x256, 02sequence at 16 spp, depth 5. Its small
+variant has the small knot at 64x64. write_env_material_scene writes the
+scene file, its knot and its map into a directory.
+
+The all-kinds scene is a 64x64 orthographic view of one sphere of each
+ported material kind (matte with sigma, plastic, metal, smooth and rough
+glass, mirror, substrate, translucent, uber, mix, fourier, none) on a
+matte backdrop, lit by a goniometric and a projection light with maps and
+a dim constant environment, chosen per shading point by the "spatial"
+strategy; write_all_kinds_scene writes it with its fourier table and maps.
+
 The PLY bench scene keeps the large scene's text, resolution, sampler and
 depth, and reads its knot, 448x112 (100,352 triangles, with normals and
 uv), from a binary little-endian PLY file written at run time; its
@@ -427,3 +445,179 @@ def build_ply_bench_scene(dirname, device="cuda", loopsubdiv=False, options=None
         raise ValueError(f"{name}: {nodes} nodes and {table} table bytes are outside the "
                          f"reference's B5 window")
     return cs
+
+
+ENV_SCENE = """
+LookAt 3 3 3  0 0 0  0 1 0
+Camera "perspective" "float fov" 40
+Film "image" "integer xresolution" [{RES}] "integer yresolution" [{RES}]
+Sampler "02sequence" "integer pixelsamples" {SPP}
+Integrator "path" "integer maxdepth" 5
+WorldBegin
+AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "string mapname" "sky.exr"
+AttributeEnd
+AttributeBegin
+  Texture "check" "spectrum" "checkerboard" "float uscale" 12 "float vscale" 12
+    "rgb tex1" [0.8 0.8 0.8] "rgb tex2" [0.15 0.15 0.15]
+  Texture "ramp" "spectrum" "uv"
+  MakeNamedMaterial "floor_matte" "string type" "matte" "texture Kd" "check"
+  MakeNamedMaterial "floor_plastic" "string type" "plastic" "texture Kd" "ramp"
+    "rgb Ks" [0.3 0.3 0.3] "float roughness" 0.05
+  Material "mix" "string namedmaterial1" "floor_matte" "string namedmaterial2" "floor_plastic"
+    "rgb amount" [0.5 0.5 0.5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-10 -1 -10  10 -1 -10  10 -1 10  -10 -1 10] "float uv" [0 0 1 0 1 1 0 1]
+AttributeEnd
+AttributeBegin
+  Material "metal" "float roughness" 0.15
+  Shape "plymesh" "string filename" "knot.ply"
+AttributeEnd
+AttributeBegin
+  Material "glass"
+  Translate 1.3 -0.45 1.7
+  Shape "sphere" "float radius" 0.55
+AttributeEnd
+AttributeBegin
+  Material "mirror"
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-2.8 -1 -2  0.4 -1 -2  0.4 1.6 -2  -2.8 1.6 -2]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_sky_exr(path, size=(512, 256), seed=0):
+    """The environment map: an equirect (theta from the light frame's +z
+    down the rows) sky gradient over a darker ground with seeded grain,
+    and a sun patch about 200x brighter than the sky, as a float EXR."""
+    from pbrt_tpu_torch.io.image_io import write_exr
+    w, h = size
+    rng = np.random.default_rng(seed)
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2 * np.pi
+    up = np.clip(np.cos(theta), 0.0, 1.0)[:, None, None]
+    sky = np.array([0.35, 0.5, 0.9]) * (0.4 + 0.6 * up) + np.array([0.6, 0.55, 0.5]) * (1 - up)
+    ground = np.array([0.12, 0.1, 0.08]) * np.ones((h, 1, 1))
+    img = np.where((theta < np.pi / 2)[:, None, None], sky, ground) * np.ones((1, w, 1))
+    img = img * rng.uniform(0.9, 1.1, (h, w, 1))
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    sun = (np.cos(tt) * np.cos(0.6) + np.sin(tt) * np.sin(0.6) * np.cos(pp - 1.0)) > np.cos(0.05)
+    img[sun] = 200.0 * np.array([1.0, 0.95, 0.85])
+    write_exr(path, img.astype(np.float32))
+
+
+def write_env_material_scene(dirname, large=True, res=None, spp=16):
+    """Write BASELINE config 3 (scene.pbrt, knot.ply, sky.exr) into dirname
+    -> the scene file's path; res defaults to 256 (large) or 64."""
+    write_sky_exr(os.path.join(dirname, "sky.exr"))
+    write_knot_ply(os.path.join(dirname, "knot.ply"), *KNOT[large])
+    path = os.path.join(dirname, "scene.pbrt")
+    with open(path, "w") as f:
+        f.write(ENV_SCENE.replace("{RES}", str(res or (256 if large else 64)))
+                .replace("{SPP}", str(spp)))
+    return path
+
+
+def build_env_material_scene(dirname, large=True, device="cuda", options=None):
+    """Write BASELINE config 3 into dirname and load it."""
+    return load_scene(write_env_material_scene(dirname, large), options, device)
+
+
+def write_fourier_bsdf(path, rho=0.6, n_mu=32, harmonics=(1.0, 0.4, 0.1), eta=1.5):
+    """A single-channel SCATFUN table: a_k(mu_i, mu_o) = rho / pi * |mu_i| *
+    harmonics[k], a diffuse lobe with an azimuthal ripple that stays
+    positive."""
+    import struct
+    mu = np.linspace(-1, 1, n_mu).astype(np.float32)
+    m = len(harmonics)
+    oal = np.zeros((n_mu * n_mu, 2), np.int32)
+    coeffs = []
+    for i in range(n_mu):
+        for j in range(n_mu):
+            oal[i * n_mu + j] = (len(coeffs), m)
+            coeffs += [rho / np.pi * abs(mu[i]) * h for h in harmonics]
+    a = np.asarray(coeffs, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"SCATFUN\x01")
+        f.write(struct.pack("<9i", 1, n_mu, len(a), m, 1, 1, 0, 0, 0))
+        f.write(struct.pack("<f", eta))
+        f.write(struct.pack("<4i", 0, 0, 0, 0))
+        f.write(mu.tobytes())
+        f.write(np.zeros(n_mu * n_mu, np.float32).tobytes())
+        f.write(oal.tobytes())
+        f.write(a.tobytes())
+
+
+def write_light_map(path, size=(32, 16), seed=1):
+    """A seeded colour map for a projection or goniometric light (EXR)."""
+    from pbrt_tpu_torch.io.image_io import write_exr
+    w, h = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    img = 0.3 + 0.7 * ((np.floor(xx * 4) + np.floor(yy * 4)) % 2)[..., None] \
+        * rng.uniform(0.3, 1.0, 3)
+    write_exr(path, img.astype(np.float32))
+
+
+ALL_KINDS = [
+    'Material "matte" "rgb Kd" [0.7 0.6 0.5] "float sigma" 25',
+    'Material "plastic" "rgb Kd" [0.2 0.3 0.6] "rgb Ks" [0.4 0.4 0.4]',
+    'Material "metal" "float roughness" 0.2',
+    'Material "glass"',
+    'Material "glass" "float roughness" 0.3',
+    'Material "mirror"',
+    'Material "substrate" "rgb Kd" [0.5 0.3 0.2] "rgb Ks" [0.3 0.3 0.3]',
+    'Material "translucent" "rgb Kd" [0.6 0.6 0.3]',
+    'Material "uber" "rgb Kd" [0.3 0.5 0.3] "rgb Kr" [0.2 0.2 0.2] "rgb opacity" [0.8 0.8 0.8]',
+    'MakeNamedMaterial "m1" "string type" "matte" "rgb Kd" [0.9 0.2 0.2]\n'
+    '  MakeNamedMaterial "m2" "string type" "metal" "float roughness" 0.05\n'
+    '  Material "mix" "string namedmaterial1" "m1" "string namedmaterial2" "m2"',
+    'Material "fourier" "string bsdffile" "ripple.bsdf"',
+    'Material ""',
+]
+
+
+def all_kinds_scene_text(res=64, spp=8, voxels=16, strategy="spatial") -> str:
+    """The all-kinds scene's text (its maps and fourier table are files
+    beside it: write_all_kinds_scene); strategy: the light strategy."""
+    spheres = "".join(
+        f'AttributeBegin\n  {m}\n  Translate {-3 + 2 * (i % 4)} {2 - 2 * (i // 4)} 0\n'
+        f'  Shape "sphere" "float radius" 0.8\nAttributeEnd\n' for i, m in enumerate(ALL_KINDS))
+    return f"""LookAt 0 0 8  0 0 0  0 1 0
+Camera "orthographic" "float screenwindow" [-4 4 -4 4]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Sampler "02sequence" "integer pixelsamples" {spp}
+Integrator "path" "integer maxdepth" 5 "string lightsamplestrategy" "{strategy}"
+  "integer spatialvoxels" {voxels}
+WorldBegin
+LightSource "infinite" "rgb L" [0.1 0.1 0.12]
+AttributeBegin
+  Translate 0 1 6
+  LightSource "goniometric" "string mapname" "gonio.exr" "rgb I" [30 30 30]
+AttributeEnd
+AttributeBegin
+  Translate 2 -1 7
+  Rotate 180 1 0 0
+  LightSource "projection" "string mapname" "proj.exr" "float fov" 70 "rgb I" [40 40 40]
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.5 0.5 0.5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-6 -6 -1.5  6 -6 -1.5  6 6 -1.5  -6 6 -1.5]
+AttributeEnd
+{spheres}WorldEnd
+"""
+
+
+def write_all_kinds_scene(dirname, res=64, spp=8, voxels=16, strategy="spatial"):
+    """Write the all-kinds scene (all_kinds.pbrt, ripple.bsdf, gonio.exr,
+    proj.exr) into dirname -> the scene file's path."""
+    write_fourier_bsdf(os.path.join(dirname, "ripple.bsdf"))
+    write_light_map(os.path.join(dirname, "gonio.exr"), (32, 16), seed=1)
+    write_light_map(os.path.join(dirname, "proj.exr"), (24, 24), seed=2)
+    path = os.path.join(dirname, "all_kinds.pbrt")
+    with open(path, "w") as f:
+        f.write(all_kinds_scene_text(res, spp, voxels, strategy))
+    return path

@@ -5,7 +5,8 @@ converted to numpy by the caller and named as in the reference (see
 ARRAY_KEYS; a scene with quadrics adds n_quadrics, quad_type, quad_o2w,
 quad_w2o, quad_params, quad_prim and the primitive records prim_material,
 prim_light and prim_rev; n_textures, mats.tex and the texture table as
-TEX_KEYS), plus its specs as plain dicts, and builds the port's
+TEX_KEYS; the fourier tables as fourier.<key> with n_fourier, the table
+count; the flags' bsdf_fams), plus its specs as plain dicts, and builds the port's
 CompiledScene on a chosen device. Tests use it so that both packages
 compute on identical tables; the port's own front end must produce tables
 equal to `tables_from_jax_arrays` of the same scene.
@@ -20,8 +21,10 @@ from pbrt_tpu_torch.cameras import CameraSpec
 from pbrt_tpu_torch.film import FilmSpec
 from pbrt_tpu_torch.filters import FilterSpec
 from pbrt_tpu_torch.samplers import SamplerSpec, PORTED_KINDS
-from pbrt_tpu_torch.scene.build import scene_from_tables
+from pbrt_tpu_torch.scene.build import ENV_KEYS, scene_from_tables
 
+# the fourier tables' arrays (fourier.<key>)
+FOURIER_KEYS = ("mu", "a", "eta", "n_mu", "a0y", "cdf")
 # the texture table's arrays (tex.<key>)
 TEX_KEYS = ("kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
             "atlas_levels")
@@ -34,7 +37,11 @@ ARRAY_KEYS = (
     "lights.ltri_p0", "lights.ltri_p1", "lights.ltri_p2",
     "light_distr.func", "light_distr.cdf", "light_distr.func_int",
     "world_center", "world_radius", "n_textures", "mats.tex",
-    *(f"tex.{k}" for k in TEX_KEYS))
+    *(f"tex.{k}" for k in TEX_KEYS),
+    "mats.child", "lights.l2w", "lights.w2l", "lights.limg", "lights.env_image",
+    "lights.env_cond_func", "lights.env_cond_cdf", "lights.env_cond_int",
+    "lights.env_marg_cdf", "lights.env_marg_int", "bsdf_fams", "n_fourier",
+    *(f"fourier.{k}" for k in FOURIER_KEYS))
 # the instance world's arrays: present (not None) only in scenes with instances
 IBVH_KEYS = ("metas", "nodes", "tris", "order", "imat", "iroot", "ianim", "i2w", "w2p",
              "wlo", "whi")
@@ -113,6 +120,18 @@ def tables_from_jax_arrays(a: dict) -> dict:
         t[f"tex_{k}"] = np.asarray(a[f"tex.{k}"], np.float32 if k in ("params", "w2t", "atlas")
                                    else np.int32)
     t["mat_tex"] = np.asarray(a["mats.tex"], np.int32)
+    t["mat_child"] = np.asarray(a["mats.child"], np.int32)
+    t["bsdf_fams"] = tuple(bool(b) for b in a["bsdf_fams"])
+    t["n_fourier"] = int(a["n_fourier"])
+    for k in FOURIER_KEYS:
+        t[f"fourier_{k}"] = np.asarray(a[f"fourier.{k}"], np.int32 if k == "n_mu"
+                                       else np.float32)
+    for k in ("l2w", "w2l"):
+        t[f"light_{k}"] = np.asarray(a[f"lights.{k}"], np.float32)
+    t["light_maps"] = np.asarray(a["lights.limg"], np.float32)
+    t["env_image"] = np.asarray(a["lights.env_image"], np.float32)
+    for k, j in zip(ENV_KEYS, ("cond_func", "cond_cdf", "cond_int", "marg_cdf", "marg_int")):
+        t[k] = np.asarray(a[f"lights.env_{j}"], np.float32)
     if n_tris:
         if a["slot_attr"] is None or a["pbvh.metas"] is None:
             raise ValueError("the reference scene carries no kernel tables: "
@@ -136,7 +155,7 @@ def from_jax_arrays(arrays: dict, specs: dict, device="cuda"):
     s = specs["sampler"]
     if s["kind"] not in PORTED_KINDS:
         raise NotImplementedError(f"sampler {s['kind']!r} is not ported")
-    camera = CameraSpec("perspective", **specs["camera"])
+    camera = CameraSpec(**{"kind": "perspective", **specs["camera"]})
     film = FilmSpec(filter=FilterSpec(**specs["filter"]), **specs["film"])
     sampler = SamplerSpec(s["kind"], int(s["spp"]), int(s["seed"]), tuple(s["resolution"]))
     return scene_from_tables(tables_from_jax_arrays(arrays), camera, film, sampler,

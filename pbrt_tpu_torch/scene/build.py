@@ -2,8 +2,10 @@
 the slice's part of pbrt_tpu/scene/build.py): the global triangle table,
 the world BVH and its kernel tables, slot-keyed hit attributes (with each
 triangle's alpha-mask texture ids), the instance world, the quadric table,
-the texture table with its image atlas, material and light tables, the
-light power distribution, and the camera, film and sampler specs."""
+the texture table with its image atlas, material tables with their fourier
+tables, light tables with the environment map's importance tables and the
+projection / goniometric map tiles, the light power distribution (and the
+spatial strategy's voxel grid), and the camera, film and sampler specs."""
 from __future__ import annotations
 
 import logging
@@ -16,22 +18,28 @@ from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.accel.instance import pack_instance_world
 from pbrt_tpu_torch.accel.traverse import pack_kernel_bvh
 from pbrt_tpu_torch.cameras import make_camera
-from pbrt_tpu_torch.core.sampling import Distribution1D
+from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_tpu_torch.film import make_film
 from pbrt_tpu_torch.filters import make_filter
 from pbrt_tpu_torch.core.transform import Transform
-from pbrt_tpu_torch.lights import compile_lights, light_power, L_AREA, L_INFINITE
-from pbrt_tpu_torch.materials import compile_materials
+from pbrt_tpu_torch.lights import (compile_lights, env_tables, light_power, L_AREA,
+                                   L_INFINITE)
+from pbrt_tpu_torch.lights.distrib import build_spatial_distrib
+from pbrt_tpu_torch.materials import compile_materials, material_families
+from pbrt_tpu_torch.materials.fourier import fourier_tables, table_on
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene.api import Api, SceneDescription
 from pbrt_tpu_torch.scene.parser import parse_file, parse_string
-from pbrt_tpu_torch.scene.types import (AT_ALPHA, AT_K, AT_SALPHA, CompiledScene, LightTable,
-                                        MaterialTable, QuadricTable, SceneData, SceneFlags)
+from pbrt_tpu_torch.scene.types import (AT_ALPHA, AT_K, AT_SALPHA, CompiledScene, EnvMap,
+                                        LightTable, MaterialTable, QuadricTable, SceneData,
+                                        SceneFlags)
 from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
 from pbrt_tpu_torch.textures import KIND_IDS as TEX_KIND_IDS, T_CHECKER3D, TextureTable
 from pbrt_tpu_torch.textures.image import build_atlas, load_image
 
-_PORTED_INTEGRATOR_PARAMS = {"maxdepth", "rrthreshold"}
+_PORTED_INTEGRATOR_PARAMS = {"maxdepth", "rrthreshold", "lightsamplestrategy",
+                             "spatialvoxels"}
+ENV_KEYS = ("env_func", "env_cond_cdf", "env_cond_int", "env_marg_cdf", "env_marg_int")
 _MAPPINGS = {"uv": 0, "spherical": 1, "cylindrical": 2, "planar": 3}
 
 
@@ -239,20 +247,33 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
     out["world_radius"] = np.float32(wr)
 
     out.update(compile_textures(desc.textures, cwd))
-    out["mat_kind"], out["mat_const"], out["mat_misc"], out["mat_tex"] = \
-        compile_materials(desc.materials)
+    (out["mat_kind"], out["mat_const"], out["mat_misc"], out["mat_tex"], out["mat_child"],
+     ftabs) = compile_materials(desc.materials, cwd)
+    out["bsdf_fams"] = material_families(desc.materials)
+    out["n_fourier"] = len(ftabs)
+    out.update({f"fourier_{k}": v for k, v in fourier_tables(ftabs).items()})
 
-    rows, out["tri_cdf"], ltri = compile_lights(desc.lights, shape_tri_range, tp, shape_quads)
+    lt = compile_lights(desc.lights, shape_tri_range, tp, shape_quads, cwd)
+    rows = lt["rows"]
+    out["tri_cdf"] = lt["tri_cdf"]
     Lc = max(len(rows), 1)
     out["light_kind"] = np.zeros(Lc, np.int32)
     out["light_L"] = np.zeros((Lc, 3), np.float32)
     out["light_params"] = np.zeros((Lc, 12), np.float32)
     out["light_params"][:, 8] = -1
-    for i, (k, L, p) in enumerate(rows):
+    out["light_l2w"] = np.tile(np.eye(4, dtype=np.float32), (Lc, 1, 1))
+    out["light_w2l"] = np.tile(np.eye(4, dtype=np.float32), (Lc, 1, 1))
+    for i, (k, L, p, l2w, w2l) in enumerate(rows):
         out["light_kind"][i], out["light_L"][i], out["light_params"][i] = k, L, p
-    out["ltri"] = ltri
+        out["light_l2w"][i], out["light_w2l"][i] = l2w, w2l
+    out["ltri"] = lt["ltri"]
     out["n_lights"] = len(rows)
-    powers = [light_power(k, L, p, wr) for k, L, p in rows]
+    out["light_maps"] = (lt["maps"] if lt["maps"] is not None
+                         else np.zeros((1, 1, 1, 3), np.float32))
+    out["env_image"] = lt["env"] if lt["env"] is not None else np.zeros((1, 1, 3), np.float32)
+    env, env_mean = env_tables(lt["env"])
+    out.update(env)
+    powers = [light_power(k, L, p, wr, env_mean) for k, L, p, _, _ in rows]
     if not powers or sum(powers) <= 0:
         powers = [1.0] * Lc
     out["light_func"], out["light_cdf"], out["light_func_int"] = \
@@ -279,9 +300,20 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
     for k in integrator_params:
         if k not in _PORTED_INTEGRATOR_PARAMS:
             raise NotImplementedError(f"integrator parameter {k!r} is not ported")
+    # the reference takes any other strategy name for "power"
+    strategy = str(integrator_params.get("lightsamplestrategy", ["power"])[0])
     ten = lambda a: torch.as_tensor(np.array(a), device=dev)
     ltri = t["ltri"]
-    kinds = t["light_kind"][:t["n_lights"]]
+    n_lights = int(t["n_lights"])
+    kinds = t["light_kind"][:n_lights]
+    lparams = t["light_params"]
+    mapped = tuple(int(i) for i in np.nonzero((kinds == L_INFINITE)
+                                             & (lparams[:n_lights, 8] >= 0))[0])
+    env = None
+    if mapped:
+        env = EnvMap(ten(t["env_image"]), Distribution2D.from_tables(
+            t["env_func"], t["env_cond_cdf"], t["env_cond_int"], t["env_cond_int"],
+            t["env_marg_cdf"], t["env_marg_int"], dev))
     alpha_ids = np.unique(t["tri_attr"][:, AT_ALPHA:AT_SALPHA + 1].astype(np.int32))
     alpha_ids = alpha_ids[alpha_ids >= 0]
     quads = None
@@ -294,20 +326,24 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         slot_attr=ten(t["slot_attr"]) if t["n_tris"] else None,
         bvh=t["bvh"].to(dev) if t["n_tris"] else None,
         mats=MaterialTable(ten(t["mat_kind"]), ten(t["mat_const"]), ten(t["mat_misc"]),
-                           ten(t["mat_tex"])),
+                           ten(t["mat_tex"]), ten(t["mat_child"])),
         tex=TextureTable(*(ten(t[f"tex_{k}"]) for k in (
             "kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
             "atlas_levels"))),
-        lights=LightTable(ten(t["light_kind"]), ten(t["light_L"]), ten(t["light_params"]),
+        lights=LightTable(ten(t["light_kind"]), ten(t["light_L"]), ten(lparams),
                           ten(t["tri_cdf"]), ten(ltri[:, 0]), ten(ltri[:, 1]),
-                          ten(ltri[:, 2])),
+                          ten(ltri[:, 2]), ten(t["light_l2w"]), ten(t["light_w2l"]), env,
+                          ten(t["light_maps"]) if t["light_maps"].shape[1] > 1 else None,
+                          mapped, np.asarray(t["light_w2l"], np.float32)),
         light_distr=Distribution1D.from_tables(t["light_func"], t["light_cdf"],
                                                t["light_func_int"], dev),
         world_center=np.asarray(t["world_center"], np.float32),
         world_radius=float(t["world_radius"]),
-        ibvh=t["ibvh"].to(dev) if "ibvh" in t else None, quads=quads)
+        ibvh=t["ibvh"].to(dev) if "ibvh" in t else None, quads=quads,
+        fourier=table_on({k: t[f"fourier_{k}"] for k in ("mu", "a", "eta", "n_mu", "a0y", "cdf")},
+                         dev) if t["n_fourier"] else None)
     flags = SceneFlags(
-        n_tris=int(t["n_tris"]), n_lights=int(t["n_lights"]),
+        n_tris=int(t["n_tris"]), n_lights=n_lights,
         has_infinite=bool(np.any(kinds == L_INFINITE)),
         has_area_lights=bool(np.any(kinds == L_AREA)),
         infinite_light_ids=tuple(int(i) for i in np.nonzero(kinds == L_INFINITE)[0]),
@@ -318,7 +354,15 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         tex_kinds=tuple(int(k) for k in np.unique(t["tex_kind"][:t["n_textures"]])),
         has_tex_slot=tuple(bool(b) for b in (t["mat_tex"] >= 0).any(0)),
         has_alpha=bool(alpha_ids.size),
-        alpha_kinds=reachable_kinds(t["tex_kind"], t["tex_child"], alpha_ids))
+        alpha_kinds=reachable_kinds(t["tex_kind"], t["tex_child"], alpha_ids),
+        bsdf_fams=tuple(bool(b) for b in t["bsdf_fams"]),
+        mat_kinds=tuple(int(k) for k in np.unique(t["mat_kind"])),
+        has_fourier=bool(t["n_fourier"]), light_strategy=strategy)
+    if strategy == "spatial" and n_lights > 0:
+        sv = integrator_params.get("spatialvoxels")
+        data.light_spatial = build_spatial_distrib(
+            data.lights, data.world_center, data.world_radius, n_lights,
+            int(sv[0]) if sv else None, dev)
     return CompiledScene(data, flags, camera, film, sampler, integrator_kind,
                          dict(integrator_params))
 

@@ -10,7 +10,7 @@ import torch
 
 from pbrt_tpu_torch.accel.instance import InstanceBVH
 from pbrt_tpu_torch.accel.traverse import KernelBVH
-from pbrt_tpu_torch.core.sampling import Distribution1D
+from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_tpu_torch.textures import TextureTable
 
 # tri_attr / slot_attr column layout (the reference's AT_*)
@@ -30,10 +30,18 @@ AT_K = 32
 
 @dataclasses.dataclass
 class MaterialTable:
-    kind: torch.Tensor    # [M] int32 (M_MATTE / M_PLASTIC)
+    kind: torch.Tensor    # [M] int32 kind id (materials/__init__.py M_*)
     const: torch.Tensor   # [M, N_SLOTS, 3] constant slot values
     misc: torch.Tensor    # [M, 8]: eta, remaproughness, ...
     tex: torch.Tensor     # [M, N_SLOTS] int32 texture id of each slot (-1: its constant)
+    child: Optional[torch.Tensor] = None   # [M, 2] int32 a mix's materials (-1: none)
+
+
+@dataclasses.dataclass
+class EnvMap:
+    """The scene's environment map (one per scene, as in the reference)."""
+    image: torch.Tensor        # [H, W, 3] equirect radiance
+    distr: Distribution2D      # luminance * sin(theta) importance
 
 
 @dataclasses.dataclass
@@ -47,6 +55,12 @@ class LightTable:
     ltri_p0: torch.Tensor  # [C,3] emitter triangles
     ltri_p1: torch.Tensor
     ltri_p2: torch.Tensor
+    l2w: Optional[torch.Tensor] = None    # [L,4,4] light to world
+    w2l: Optional[torch.Tensor] = None    # [L,4,4] world to light
+    env: Optional[EnvMap] = None          # None: no infinite light has a map
+    limg: Optional[torch.Tensor] = None   # [K,64,64,3] projection / goniometric maps
+    mapped: Tuple[int, ...] = ()          # rows of the infinite lights with a map
+    w2l_host: Optional[np.ndarray] = None  # w2l on the host
     kinds: tuple = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -89,6 +103,8 @@ class SceneData:
     world_radius: float
     ibvh: Optional[InstanceBVH] = None  # the instance world; None without instances
     quads: Optional[QuadricTable] = None  # None without quadrics
+    fourier: object = None                # FourierTable; None without fourier materials
+    light_spatial: object = None          # SpatialLightDistrib of the "spatial" strategy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +122,12 @@ class SceneFlags:
     has_tex_slot: Tuple[bool, ...] = ()  # per material slot: some material textures it
     has_alpha: bool = False              # some triangle has an alpha mask
     alpha_kinds: Tuple[int, ...] = ()    # texture kinds the alpha masks reach
+    # the reference's material_families: (diffuse transmission, glossy,
+    # glossy transmission, Oren-Nayar, specular)
+    bsdf_fams: Tuple[bool, ...] = (True, True, True, True, True)
+    mat_kinds: Tuple[int, ...] = ()      # material kind ids in the table, ascending
+    has_fourier: bool = False
+    light_strategy: str = "power"        # "power", "uniform" or "spatial"
 
 
 @dataclasses.dataclass

@@ -395,3 +395,88 @@ def test_textured_render_takes_the_alpha_rounds(tmp_path):
         build_textured_bench_scene(image, large=False, device="cpu", options=opts), opts)
     a, c = img.cpu().numpy(), cpu.numpy()
     assert np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean() >= 0.99
+
+
+def _crop_close(a, c):
+    a, c = a.cpu().numpy(), c.numpy()
+    return np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
+
+
+def test_config3_crop_on_the_card_matches_the_cpu(tmp_path):
+    """BASELINE config 3's small scene on the card: B1 6 launches a pass
+    (the camera walk and 5 pair launches at depth 5); its centre 32x32
+    crop finite, nonzero and close to the CPU's (>= 99% of pixels within
+    rtol 1e-3 / atol 1e-4, as chip_smoke.py holds its crops: a pixel whose
+    path meets a glass edge or an environment texel edge may take the
+    other branch on the card's sin, cos and atan2)."""
+    needs_cuda()
+    from pbrt_tpu_torch.scene.bench import write_env_material_scene
+    from pbrt_tpu_torch.scene.build import load_scene
+    path = write_env_material_scene(str(tmp_path), large=False)
+    opts = Options(crop_window=(0.25, 0.75, 0.25, 0.75))
+    before = T.traverse.launches
+    img, _, passes = render_sampler_integrator(load_scene(path, opts, "cuda"), opts)
+    torch.cuda.synchronize()
+    assert T.traverse.launches - before == 6 * passes
+    assert torch.isfinite(img).all() and float(img.sum()) > 0
+    cpu, _, _ = render_sampler_integrator(load_scene(path, opts, "cpu"), opts)
+    assert _crop_close(img, cpu) >= 0.99
+
+
+def test_all_kinds_scene_is_finite_on_the_card(tmp_path):
+    """The all-kinds scene (every ported material kind, a fourier table,
+    goniometric and projection maps, the spatial strategy) at 64x64 and 2
+    spp on the card: finite and nonzero, each sphere lit, and its centre
+    32x32 crop close to the CPU's."""
+    needs_cuda()
+    from pbrt_tpu_torch.scene.bench import write_all_kinds_scene
+    from pbrt_tpu_torch.scene.build import load_scene
+    path = write_all_kinds_scene(str(tmp_path), spp=2)
+    img, _, _ = render_sampler_integrator(load_scene(path, None, "cuda"), Options())
+    assert tuple(img.shape) == (64, 64, 3) and torch.isfinite(img).all()
+    assert float(img.sum()) > 0
+    opts = Options(crop_window=(0.25, 0.75, 0.25, 0.75))
+    a, _, _ = render_sampler_integrator(load_scene(path, opts, "cuda"), opts)
+    c, _, _ = render_sampler_integrator(load_scene(path, opts, "cpu"), opts)
+    assert _crop_close(a, c) >= 0.99
+
+
+# device kernels of one full render under torch.profiler before the new
+# material, light and strategy stages (PERF.md section 5's ranges over
+# earlier chip runs); the sphere scene, matte only, now skips the glossy
+# family and issues about 28,000 fewer
+UNTOUCHED_KERNELS = {"large": (30136, 30208), "static": (31596, 31674),
+                     "animated": (33483, 33562), "ply": (28932, 29016),
+                     "sphere": (162857, 162949), "showcase": (49932, 50047),
+                     "textured": (99631, 99666)}
+
+
+@pytest.mark.parametrize("name", list(UNTOUCHED_KERNELS))
+def test_untouched_scenes_keep_their_device_kernels(name, tmp_path):
+    """One full render of each scene that holds none of the new stages
+    under torch.profiler: its device kernels within the range it had
+    before them, widened by 0.5% for the run-to-run spread of the
+    profiler's count (its memsets and copies move with the allocator's
+    state: one process counted the showcase at 50,060, another at 50,044,
+    on the same tensor ops); the sphere scene below that range."""
+    needs_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    from pbrt_tpu_torch.scene import bench as Bn
+    image = str(tmp_path / "floor.png")
+    Bn.write_floor_image(image)
+    cs = {"large": lambda: Bn.build_bench_scene(True, "cuda"),
+          "static": lambda: Bn.build_instanced_bench_scene(False, "cuda"),
+          "animated": lambda: Bn.build_instanced_bench_scene(True, "cuda"),
+          "ply": lambda: Bn.build_ply_bench_scene(str(tmp_path), "cuda"),
+          "sphere": lambda: Bn.build_sphere_scene("cuda"),
+          "showcase": lambda: Bn.build_quadric_showcase("cuda"),
+          "textured": lambda: Bn.build_textured_bench_scene(image, True, "cuda")}[name]()
+    render_sampler_integrator(cs, Options())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render_sampler_integrator(cs, Options())
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    lo, hi = UNTOUCHED_KERNELS[name]
+    lo, hi = int(lo * 0.995), int(hi * 1.005)
+    assert n < lo if name == "sphere" else lo <= n <= hi, n

@@ -13,14 +13,18 @@ import jax.numpy as jnp
 from torch_port_helpers import REPO, jax_bench_scene, jax_scene_arrays, lanes, pallas_tables
 
 from pbrt_tpu.integrators.path import li_path as j_li_path
+from pbrt_tpu.scene import load_scene as j_load_scene, load_scene_string as j_load_scene_string
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.io.image_io import read_png, write_png
 from pbrt_tpu_torch.render import Options, render_sampler_integrator
-from pbrt_tpu_torch.scene import load_scene_string
+from pbrt_tpu_torch.scene import load_scene, load_scene_string
+from pbrt_tpu_torch.scene.api import Api
 from pbrt_tpu_torch.scene.bench import (KNOT, KNOT_MATERIAL, SCENE, SPHERE_SCENE,
                                         bench_description, build_bench_scene,
                                         quadric_scene_text, textured_description,
-                                        textured_scene_text, write_floor_image)
+                                        textured_scene_text, write_all_kinds_scene,
+                                        write_env_material_scene, write_floor_image)
+from pbrt_tpu_torch.scene.parser import parse_file
 from pbrt_tpu_torch.scene.bridge import from_jax_arrays, tables_from_jax_arrays
 from pbrt_tpu_torch.scene.build import build_tables
 
@@ -111,6 +115,92 @@ def test_li_path_matches_reference(scenes):
         assert abs(int(cnt[k]) - float(jcnt[k])) <= 0.01 * float(jcnt[k]), k
 
 
+def _hold_li_path(jcs, cs, n, res, spp, depth, seed):
+    """li_path of n lanes of both packages: >= 99% of lanes within rtol
+    1e-3 / atol 1e-4, the means within 1%, p_film bit-equal and the same
+    live-ray counts -> the port's mean."""
+    px, py, s = lanes(n, res, spp, seed=seed)
+    L, p_film, _, cnt = li_path(cs, *(torch.as_tensor(a) for a in (px, py, s)), max_depth=depth)
+    jL, jp, _, jcnt = j_li_path(jcs, jnp.asarray(px), jnp.asarray(py), jnp.asarray(s),
+                                max_depth=depth, with_stats=True)
+    L, jL = L.numpy(), np.asarray(jL)
+    ok = np.all(np.abs(L - jL) <= 1e-4 + 1e-3 * np.abs(jL), axis=1)
+    assert ok.mean() >= 0.99
+    assert abs(L.mean() - jL.mean()) <= 0.01 * abs(jL.mean())
+    np.testing.assert_array_equal(p_film.numpy(), np.asarray(jp))
+    for k in ("camera_rays", "shadow_rays", "bounce_rays", "valid_hits"):
+        assert int(cnt[k]) == int(jcnt[k]), k
+    return L.mean()
+
+
+@pytest.fixture(scope="module")
+def config3(tmp_path_factory):
+    """BASELINE config 3's small scene (the small knot, 64x64, 4 spp) in the
+    reference with kernel tables -> (its CPU-path scene, arrays, specs,
+    the scene file)."""
+    import dataclasses
+    path = write_env_material_scene(str(tmp_path_factory.mktemp("config3")), large=False, spp=4)
+    with pallas_tables():
+        jcs = j_load_scene(path)
+    arrays, specs = jax_scene_arrays(jcs)
+    jcpu = dataclasses.replace(jcs, flags=dataclasses.replace(jcs.flags, use_pallas=False))
+    return jcpu, arrays, specs, path
+
+
+def test_config3_front_end_tables_equal_bridge(config3):
+    """Every table of the port's front end, the environment map's, the
+    material children and the lobe families included, equals the
+    reference's; the port's own scene and the bridged one hold the same
+    flags."""
+    _, arrays, specs, path = config3
+    want = tables_from_jax_arrays(arrays)
+    api = Api()
+    api.cwd = os.path.dirname(path)
+    parse_file(path, api)
+    got = build_tables(api.scene, api.cwd)
+    assert set(got) == set(want)
+    for k in want:
+        if k != "bvh":
+            assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
+    ours = load_scene(path, device="cpu")
+    assert ours.flags == from_jax_arrays(arrays, specs, device="cpu").flags
+    assert ours.flags.bsdf_fams == (False, True, False, False, True)
+    assert ours.flags.mat_kinds == (0, 1, 2, 3, 4, 9) and ours.data.lights.mapped == (0,)
+
+
+def test_config3_li_path_matches_reference(config3):
+    """BASELINE config 3 (metal knot, mix floor, glass and mirror, the
+    environment map with MIS), 1,024 lanes at depth 3."""
+    jcpu, _, _, path = config3
+    assert _hold_li_path(jcpu, load_scene(path, device="cpu"), 1024, 64, 4, 3, seed=5) > 0.05
+
+
+FURNACE = {"glass": 'Material "glass"'}
+
+
+@pytest.mark.parametrize("kind", list(FURNACE))
+def test_furnace_li_path_matches_reference(kind):
+    """The reference's furnace scene (tests/test_material_furnace.py: an
+    orthographic view of a unit sphere under a white dome) for smooth glass
+    (specular reflection, transmission and total internal reflection),
+    1,024 lanes at depth 3; the other kinds are held in the two tests
+    below, metal in config 3 and every kind in the all-kinds scene."""
+    from test_material_furnace import furnace_scene
+    text = furnace_scene(FURNACE[kind])
+    assert _hold_li_path(j_load_scene_string(text), load_scene_string(text, device="cpu"),
+                         1024, 20, 8, 3, seed=6) > 0.3
+
+
+@pytest.mark.parametrize("strategy", ["spatial", "uniform"])
+def test_all_kinds_li_path_matches_reference(tmp_path, strategy):
+    """One sphere of every ported kind (fourier and none included) under a
+    goniometric and a projection light with maps, chosen by the spatial or
+    the uniform strategy, 1,024 lanes at depth 3."""
+    path = write_all_kinds_scene(str(tmp_path), voxels=4, strategy=strategy)
+    assert _hold_li_path(j_load_scene(path), load_scene(path, device="cpu"), 1024, 64, 8, 3,
+                         seed=7) > 0.01
+
+
 @pytest.fixture(scope="module")
 def textured(tmp_path_factory):
     """The small textured bench scene (checkerboard wall, image-mapped
@@ -153,13 +243,14 @@ def test_textured_front_end_tables_equal_bridge(textured):
 
 
 def test_textured_li_path_matches_reference(textured):
-    """256 lanes at depth 1 (the reference runs its texture stage op by op
-    here, about 40 s; jitted, it compiles for many minutes): >= 99% of
-    lanes within rtol 1e-3 / atol 1e-4, the mean within 1%, the same
+    """1,024 lanes at depth 1 (the reference runs its texture stage op by
+    op; at the lane count of test_li_path_matches_reference, which runs
+    before it in this process, it reuses that test's compiled ops): >= 99%
+    of lanes within rtol 1e-3 / atol 1e-4, the mean within 1%, the same
     live-ray counts."""
     jcpu, arrays, specs, _ = textured
     cs = from_jax_arrays(arrays, specs, device="cpu")
-    px, py, s = lanes(256, 64, 4, seed=12)
+    px, py, s = lanes(1024, 64, 4, seed=12)
     L, _, _, cnt = li_path(cs, *(torch.as_tensor(a) for a in (px, py, s)), max_depth=1)
     jL, _, _, jcnt = j_li_path(jcpu, jnp.asarray(px), jnp.asarray(py), jnp.asarray(s),
                                max_depth=1, with_stats=True)
@@ -188,14 +279,17 @@ def test_smoke_scene_renders_without_jax(tmp_path):
     constant-environment scene, where every pixel is sRGB 188, and the same
     with instances and an animated triangle, which darken some pixels; the
     sphere scene of BASELINE.json's first configuration (at 16x16 and 2
-    spp), lit in the middle and black in the corners; and a scene with
-    every quadric kind, curves and point, spot and distant lights."""
+    spp), lit in the middle and black in the corners; a scene with every
+    quadric kind, curves and point, spot and distant lights; and BASELINE
+    config 3 (its knot read from PLY, its environment map from EXR) at
+    16x16 and 1 spp."""
     sphere = SPHERE_SCENE.replace("[256]", "[16]").replace("pixelsamples\" 16",
                                                             "pixelsamples\" 2")
     quadrics = quadric_scene_text(res=16, spp=1, n_grass=2)
+    config3 = open(write_env_material_scene(str(tmp_path), large=False, res=16, spp=1)).read()
     scenes, outs = [], []
     for name, text in (("smoke", SMOKE), ("instanced", INSTANCED_SMOKE), ("sphere", sphere),
-                       ("quadrics", quadrics)):
+                       ("quadrics", quadrics), ("config3", config3)):
         scenes.append(tmp_path / f"{name}.pbrt")
         outs.append(tmp_path / f"{name}.png")
         scenes[-1].write_text(text.replace("{OUT}", str(outs[-1])).replace(
@@ -215,6 +309,8 @@ def test_smoke_scene_renders_without_jax(tmp_path):
     assert img.shape == (16, 16, 3) and np.all(img[0, 0] == 0) and np.all(img[15, 15] == 0)
     assert img[6:10, 6:10].min() > 20
     img = read_png(str(outs[3]))
+    assert img.shape == (16, 16, 3) and len(np.unique(img.reshape(-1, 3), axis=0)) > 50
+    img = read_png(str(outs[4]))
     assert img.shape == (16, 16, 3) and len(np.unique(img.reshape(-1, 3), axis=0)) > 50
 
 
@@ -258,13 +354,14 @@ def test_png_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("directive,what", [
-    ('Material "metal"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
-     "material 'metal'"),
-    ('Material "glass"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
-     "material 'glass'"),
-    ('LightSource "goniometric"', "light 'goniometric'"),
-    ('LightSource "infinite" "string mapname" "sky.exr"', "infinite light 'mapname'"),
-    ('LightSource "projection"', "light 'projection'"),
+    ('Material "subsurface"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
+     "material 'subsurface'"),
+    ('Material "kdsubsurface"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
+     "material 'kdsubsurface'"),
+    ('MediumInterface "a" "b"', "MediumInterface 'a' 'b'"),
+    ('TransformTimes 0 2', "TransformTimes other than 0 1"),
+    ('Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0] '
+     '"vector S" [1 0 0 1 0 0 1 0 0]', "trianglemesh parameter 'S'"),
     ('MakeNamedMedium "m" "string type" "homogeneous"', "MakeNamedMedium 'm'"),
 ])
 def test_unported_directives_raise(directive, what):
@@ -276,7 +373,7 @@ def test_unported_directives_raise(directive, what):
 @pytest.mark.parametrize("line,what", [
     ('Sampler "halton"', "sampler 'halton'"),
     ('Integrator "bdpt"', "integrator 'bdpt'"),
-    ('Camera "orthographic"', "camera 'orthographic'"),
+    ('Camera "realistic"', "camera 'realistic'"),
     ('Accelerator "kdtree"', "accelerator 'kdtree'"),
 ])
 def test_unported_options_raise(line, what):

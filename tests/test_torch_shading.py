@@ -109,7 +109,8 @@ def test_compute_lobes_matches_reference(scenes):
     n = 512
     mat = np.random.default_rng(2).integers(-1, cs.data.mats.kind.shape[0], n).astype(np.int32)
     lb = compute_lobes(cs.data.mats, cs.data.tex, torch.as_tensor(mat), torch.zeros((n, 2)),
-                       torch.zeros((n, 3)), None, cs.flags.has_tex_slot, cs.flags.tex_kinds)
+                       torch.zeros((n, 3)), None, cs.flags.has_tex_slot, cs.flags.tex_kinds,
+                       fams=cs.flags.bsdf_fams, kinds=cs.flags.mat_kinds)
     z2 = jnp.zeros((n, 2))
     ref = j_compute_lobes(jcs.data.mats, jcs.data.tex, jnp.asarray(mat), z2, jnp.zeros((n, 3)),
                           jnp.zeros(n), (False,) * 10)

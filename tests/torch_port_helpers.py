@@ -61,20 +61,26 @@ def jax_scene_arrays(cs):
     for k in ("quad_type", "quad_o2w", "quad_w2o", "quad_params", "quad_prim", "prim_material",
               "prim_light", "prim_rev"):
         arrays[k] = a(getattr(d, k))
-    for k in ("kind", "const", "misc", "tex"):
+    for k in ("kind", "const", "misc", "tex", "child"):
         arrays[f"mats.{k}"] = a(getattr(d.mats, k))
+    arrays["bsdf_fams"] = cs.flags.bsdf_fams
+    arrays["n_fourier"] = int(cs.flags.has_fourier and d.fourier.mu.shape[0])
+    for k in ("mu", "a", "eta", "n_mu", "a0y", "cdf"):
+        arrays[f"fourier.{k}"] = a(getattr(d.fourier, k))
     for k in ("kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
               "atlas_levels"):
         arrays[f"tex.{k}"] = a(getattr(d.tex, k))
     arrays["n_textures"] = d.tex.kind.shape[0] if cs.flags.tex_kinds else 0
-    for k in ("kind", "L", "params", "tri_cdf", "ltri_p0", "ltri_p1", "ltri_p2"):
+    for k in ("kind", "L", "params", "tri_cdf", "ltri_p0", "ltri_p1", "ltri_p2", "l2w", "w2l",
+              "limg", "env_image", "env_cond_func", "env_cond_cdf", "env_cond_int",
+              "env_marg_cdf", "env_marg_int"):
         arrays[f"lights.{k}"] = a(getattr(d.lights, k))
     for k in ("func", "cdf", "func_int"):
         arrays[f"light_distr.{k}"] = a(getattr(d.light_distr, k))
     cam, film, s = cs.camera, cs.film, cs.sampler
     f = film.filter
     specs = {
-        "camera": dict(raster_to_camera=np.asarray(cam.raster_to_camera),
+        "camera": dict(kind=cam.kind, raster_to_camera=np.asarray(cam.raster_to_camera),
                        cam_to_world=np.asarray(cam.cam_to_world.start.m),
                        shutter_open=cam.shutter_open, shutter_close=cam.shutter_close,
                        resolution=tuple(cam.resolution)),
