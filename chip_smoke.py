@@ -106,7 +106,34 @@ Phases (any failure raises and exits non-zero; nothing catches it):
   16. the all-kinds scene (64x64, orthographic: one sphere of each ported
      material kind, a fourier table, a goniometric and a projection light
      with maps written here, the spatial light strategy): the same checks
-     at 64x64 with a 32x32 crop.
+     at 64x64 with a 32x32 crop;
+  17. every sampler kind (random, stratified 4x4 jittered and 3x5 not,
+     halton, sobol and its Owen-scrambled variant, 02sequence, maxmindist)
+     drawn on the card at 131,072 lanes of a 256x256 film for dims 0-44
+     and three 2D slots, bit-equal to the same draw on the CPU; the ms and
+     the tensor ops a dimension of each kind;
+  18. BASELINE config 2 (scene/bench.py write_config2_scene: the PLY bench
+     scene, its 100,352-triangle knot over 32,768 nodes, with the
+     stratified sampler 4x4 jittered, 256x256, depth 5): three renders
+     after a warm-up, finite and nonzero, "packet" (B5) 6 launches a pass
+     and no other kernel; one render under torch.profiler; a 32x32 crop
+     bitwise equal over two renders and close to the CPU's;
+  19. BASELINE config 4 (write_config4_scene: the large knot as glass
+     before a mirror, a lens focused on the knot, the global Sobol'
+     sampler, 256x256, depth 5): one timed render at the full 256 spp (128
+     passes), finite and nonzero with B1 6 launches a pass; the profiled
+     render and the crops at 16 spp, with the same checks but for the
+     crop's bound: 95% of its pixels close to the CPU's, since a pixel
+     averages 16 paths and through the glass knot the card's rounding
+     moves a path now and then; the crop's 16,384 lanes (li_path on the
+     card against the CPU) are held to the repo's 99%;
+  20. the volpath scene (write_volpath_scene: the large bench scene in a
+     homogeneous fog with the knot in a box of grid medium, volpath at
+     depth 5, 4 spp): the checks of phase 18 with B1 26 launches a pass (6
+     bounce intersections and 4 transmittance rounds for each of 5 NEE
+     shadow rays), and the tracking loops' host reads a render.
+Every profile records the device's activity only (kernels, copies and
+sets); its top ops are the kernels' ops by name (`kernel_op`).
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
@@ -127,14 +154,19 @@ import torch
 from pbrt_tpu_torch.accel import instance as I
 from pbrt_tpu_torch.accel import native
 from pbrt_tpu_torch.accel import traverse as T
+from pbrt_tpu_torch import media as MD
 from pbrt_tpu_torch.integrators.common import camera_rays
+from pbrt_tpu_torch.integrators.path import li_path
+from pbrt_tpu_torch.integrators.volpath import TR_SEGMENTS
 from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
-from pbrt_tpu_torch.samplers import sample_dim
+from pbrt_tpu_torch.samplers import SamplerSpec, sample_2d, sample_dim
 from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
                                         build_instanced_bench_scene, build_ply_bench_scene,
                                         build_quadric_showcase, build_sphere_scene,
                                         build_textured_bench_scene, write_all_kinds_scene,
-                                        write_env_material_scene, write_floor_image)
+                                        write_config2_scene, write_config4_scene,
+                                        write_env_material_scene, write_floor_image,
+                                        write_volpath_scene)
 from pbrt_tpu_torch.scene.build import load_scene
 from pbrt_tpu_torch.scene.intersect import _quadric_pass, kernel_bary
 
@@ -157,6 +189,11 @@ OPS = {"setup": 20, "box": 26, "tri": 51, "xform": 33, "lerp": 24}
 # the port's kernel functions, this tree's and those of earlier trees that
 # time_kernels.py times beside it (traverse_kernel<1,1,b>: B1 and B2 before
 # walk_kernel; packet_kernel: B4/B5 before walk_kernel<0,0,1>)
+# every sampler kind, with the spec fields it takes (phase 17)
+SAMPLER_KINDS = [("random", {}), ("stratified", dict(xsamples=4, ysamples=4)),
+                 ("stratified", dict(xsamples=3, ysamples=5, jitter=False)), ("halton", {}),
+                 ("sobol", {}), ("sobol", dict(owen=True)), ("02sequence", {}),
+                 ("maxmindist", {})]
 PORT_KERNELS = ("walk_kernel", "traverse_kernel", "packet_kernel", "traverse4_kernel",
                 "instance_kernel")
 
@@ -407,26 +444,39 @@ def bound_ms(counts, n, ray_bytes, inst_bytes=0, enter_ops=0, fixed_bytes=0):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def kernel_op(name):
+    """A device kernel's name shortened to the op it computes: the functor
+    or lambda of an elementwise kernel ("Mul", "add", "bitwise_and"), else
+    the kernel function's name."""
+    for pattern in (r"(\w+)_kernel_cuda", r"Functor_(\w+)", r"::(\w+)Functor<", r"(\w*kernel\w*)[<(]"):
+        found = re.findall(pattern, name)
+        if found:
+            return found[-1]
+    return name[:48]
+
+
 def profile_render(cs, opts):
-    """One render under torch.profiler -> (device ms, device kernel count,
-    the 5 ops with the most device time, {port kernel (`kernel_of`): its
-    device ms in the render})."""
+    """One render under torch.profiler, the device's activity only (the
+    host's op events would cost 2.5x the post-processing time for the same
+    kernels) -> (device ms, device kernel count, the 5 kernel ops
+    (`kernel_op`) with the most device time, {port kernel (`kernel_of`):
+    its device ms in the render})."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         render_sampler_integrator(cs, opts)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.events() if e.device_type == cuda]
     busy = sum(e.device_time_total for e in kernels) / 1e3
-    avgs = prof.key_averages()
-    ops = sorted((e for e in avgs if e.device_type != cuda),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:5]
-    top = ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f}" for e in ops)
-    mine = dict.fromkeys(REPLACES, 0.0)
-    for e in avgs:
-        name = kernel_of(e.key)
-        if e.device_type == cuda and name:
-            mine[name] += e.self_device_time_total / 1e3
+    by_op, mine = {}, dict.fromkeys(REPLACES, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        op = kernel_op(e.key)
+        by_op[op] = by_op.get(op, 0.0) + e.self_device_time_total / 1e3
+        if kernel_of(e.key):
+            mine[kernel_of(e.key)] += e.self_device_time_total / 1e3
+    top = ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:5])
     return busy, len(kernels), top, mine
 
 
@@ -484,14 +534,21 @@ def check_render(img, launches, want, label, res=256):
         raise AssertionError(f"{label} render launches {launches}, expected {want}")
 
 
-def check_crop(a, b, c, label):
+def close_share(a, c):
+    """Share of pixels of a within rtol 1e-3 / atol 1e-4 of c."""
+    a, c = a.cpu().numpy(), c.cpu().numpy()
+    return float(np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean())
+
+
+def check_crop(a, b, c, label, bound=0.99):
     """A 32x32 crop: bitwise equal over two card renders (a, b) and within
-    rtol 1e-3 / atol 1e-4 of the CPU render (c) on >= 99% of pixels."""
+    rtol 1e-3 / atol 1e-4 of the CPU render (c) on >= `bound` of its pixels,
+    the means within 1%."""
     if tuple(a.shape) != (32, 32, 3) or not torch.equal(a, b):
         raise AssertionError(f"the {label} 32x32 crop differs between two renders")
+    near = close_share(a, c)
     a, c = a.cpu().numpy(), c.numpy()
-    near = np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean()
-    if near < 0.99 or abs(a.mean() - c.mean()) > 0.01 * abs(c.mean()):
+    if near < bound or abs(a.mean() - c.mean()) > 0.01 * abs(c.mean()):
         raise AssertionError(f"{label} CUDA crop vs CPU crop: {near:.4f} of pixels close, "
                              f"means {a.mean()} / {c.mean()}")
     print(f"{label} 32x32 crop: bitwise equal over two CUDA renders; {near:.4f} of pixels "
@@ -664,12 +721,33 @@ def textured_render(dev, card, large=True):
         check_crop(a, b, c, "textured")
 
 
-def scene_file_render(label, path, res, crop, b1_per_pass, dev, card):
-    """Phases 15 and 16: one scene file end to end on the card: three
-    timed renders after a warm-up, each finite and nonzero with B1
-    b1_per_pass launches a pass and no other kernel; one render under
-    torch.profiler; the crop bitwise equal over two renders and close to
-    the CPU crop."""
+def lane_share(path, copt, dev):
+    """li_path of every lane of a crop (each pixel at each sample index) on
+    the card and on the CPU -> (share of lanes within rtol 1e-3 / atol
+    1e-4, lanes): the repo's criterion for an integrator, where a crop
+    pixel averages all of a pixel's lanes."""
+    out = []
+    for d in (dev, "cpu"):
+        cs = load_scene(path, copt, d)
+        px, py = (torch.as_tensor(a, device=d) for a in sample_pixels(cs.film))
+        spp = cs.sampler.rounded_spp()
+        sidx = torch.arange(spp, device=d, dtype=torch.int32).repeat_interleave(px.shape[0])
+        depth = int(cs.integrator_params.get("maxdepth", [5])[0])
+        out.append(li_path(cs, px.repeat(spp), py.repeat(spp), sidx, max_depth=depth)[0])
+    return close_share(*out), out[1].shape[0]
+
+
+def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None,
+                      crop_bound=0.99):
+    """Phases 15, 16 and 18 - 20: one scene file end to end on the card:
+    `timed` renders after a warm-up, each finite and nonzero with the
+    kernel launches want ({kernel: launches a pass}; no other kernel);
+    one render under torch.profiler; the crop bitwise equal over two
+    renders and close to the CPU crop (on >= crop_bound of its pixels; a
+    bound under 0.99 comes with its lanes held to 99%, `lane_share`). small_path, where given, is the scene at a
+    lower sample count for the profiled render and the crops.
+    In scenes with a grid medium, each render's tracking-loop host reads
+    are printed. -> the timed scene."""
     t0 = time.time()
     cs = load_scene(path, None, dev)
     f = cs.flags
@@ -678,34 +756,93 @@ def scene_file_render(label, path, res, crop, b1_per_pass, dev, card):
           f"{f.mat_kinds}, lobe families {f.bsdf_fams}, fourier {f.has_fourier}, light kinds "
           f"{cs.data.lights.kinds}, environment map "
           f"{None if cs.data.lights.env is None else tuple(cs.data.lights.env.image.shape)}, "
-          f"light strategy {f.light_strategy}")
+          f"light strategy {f.light_strategy}, sampler {cs.sampler.kind} at "
+          f"{cs.sampler.rounded_spp()} spp, lens radius {cs.camera.lens_radius}, integrator "
+          f"{cs.integrator_kind}, media {f.n_media} (grid {f.any_grid_media})")
+    small = small_path or path
     copt = Options(crop_window=crop)
-    a, _, _ = render_sampler_integrator(load_scene(path, copt, dev), copt)
+    a, _, _ = render_sampler_integrator(load_scene(small, copt, dev), copt)
     torch.cuda.synchronize()   # the crop render is the warm-up
     opts = Options()
-    walls = []
-    for _ in range(3):
+    walls, reads = [], []
+    for _ in range(timed):
         zero_counts()
+        MD.HOST_READS["blocks"] = 0
         t0 = time.time()
         img, cnt, passes = render_sampler_integrator(cs, opts)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
+        reads.append(MD.HOST_READS["blocks"])
         launches = read_counts()
-        check_render(img, launches, {"bvh_traverse": b1_per_pass * passes}, label, res=res)
-    wall = sorted(walls)[1]
+        check_render(img, launches, {k: v * passes for k, v in want.items()}, label, res=res)
+    wall = sorted(walls)[len(walls) // 2]
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
+    per_pass = ", ".join(f"{k} {launches[k] // passes}" for k in want)
     print(f"{label} render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; "
-          f"{passes} passes, B1 {launches['bvh_traverse'] // passes} launches a pass; "
+          f"{passes} passes, launches a pass: {per_pass}; "
           f"{res * res * cs.sampler.rounded_spp() / wall:.0f} samples/s, "
           f"{live / wall / 1e6:.3f} M live rays/s ({live} live rays), mean "
           f"{float(img.mean()):.5f}  [{card}]")
-    busy, n_kern, top, mine = profile_render(cs, opts)
-    print(f"{label} render under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device "
-          f"time, {100 * busy / 1e3 / wall:.1f}% of the unprofiled wall; B1 "
-          f"{mine['bvh_traverse']:.3f} ms; top device ops (ms): {top}  [{card}]")
-    b, _, _ = render_sampler_integrator(load_scene(path, copt, dev), copt)
-    c, _, _ = render_sampler_integrator(load_scene(path, copt, "cpu"), copt)
-    check_crop(a, b, c, label)
+    if f.any_grid_media:
+        print(f"{label}: tracking-loop host reads a render {reads} ({reads[0] / passes:.1f} a "
+              f"pass)")
+    cs_p = load_scene(small, None, dev) if small_path else cs
+    busy, n_kern, top, mine = profile_render(cs_p, opts)
+    wall_p = wall * cs_p.sampler.rounded_spp() / cs.sampler.rounded_spp()
+    print(f"{label} render{' at ' + str(cs_p.sampler.rounded_spp()) + ' spp' if small_path else ''}"
+          f" under torch.profiler: {n_kern} device kernels, {busy:.1f} ms device time, "
+          f"{100 * busy / 1e3 / wall_p:.1f}% of the unprofiled wall"
+          f"{' (scaled by spp)' if small_path else ''}; "
+          + ", ".join(f"{k} {mine[k]:.3f} ms" for k in want)
+          + f"; top device ops (ms): {top}  [{card}]")
+    b, _, _ = render_sampler_integrator(load_scene(small, copt, dev), copt)
+    c, _, _ = render_sampler_integrator(load_scene(small, copt, "cpu"), copt)
+    if crop_bound < 0.99:
+        share, n = lane_share(small, copt, dev)
+        print(f"{label} 32x32 crop, li_path of its {n} lanes on the card against the CPU: "
+              f"{share:.4f} within rtol 1e-3 / atol 1e-4")
+        if share < 0.99:
+            raise AssertionError(f"{label}: {share:.4f} of the crop's lanes close to the CPU's")
+    check_crop(a, b, c, label, crop_bound)
+    return cs
+
+
+def sampler_draws(dev, card, n=131_072, dims=45):
+    """Phase 17: every sampler kind drawn on the card at n lanes of a
+    256x256 film (16 spp) for dims 0 - 44, bit-equal to the same draw on
+    the CPU; ms a dimension by CUDA events and tensor ops a dimension."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            OpCount.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(17)
+    lanes_np = [rng.integers(0, 256, n).astype(np.int32) for _ in range(2)]
+    for kind, kw in SAMPLER_KINDS:
+        spec = SamplerSpec(kind, 16, 0, (256, 256), **kw)
+        lanes = lanes_np + [rng.integers(0, spec.rounded_spp(), n).astype(np.int32)]
+        gpu = [torch.as_tensor(a, device=dev) for a in lanes]
+        cpu = [torch.as_tensor(a) for a in lanes]
+        for dim in range(dims):
+            got = sample_dim(spec, *gpu, dim).cpu()
+            if not torch.equal(got.view(torch.int32), sample_dim(spec, *cpu, dim).view(torch.int32)):
+                raise AssertionError(f"sampler {kind} {kw}: dim {dim} on the card differs "
+                                     "from the CPU")
+        for dim in (0, 2, 21):
+            got = sample_2d(spec, *gpu, dim).cpu()
+            if not torch.equal(got.view(torch.int32), sample_2d(spec, *cpu, dim).view(torch.int32)):
+                raise AssertionError(f"sampler {kind} {kw}: 2D slot {dim} differs")
+        ms = cuda_ms(lambda: [sample_dim(spec, *gpu, d) for d in range(dims)], 3) / dims
+        OpCount.n = 0
+        with OpCount():
+            for d in range(dims):
+                sample_dim(spec, *gpu, d)
+        print(f"sampler {kind} {kw or ''}: dims 0-{dims - 1} at {n} lanes bit-equal to the CPU; "
+              f"{ms:.3f} ms and {OpCount.n / dims:.1f} tensor ops a dimension  [{card}]")
 
 
 def main():
@@ -744,11 +881,10 @@ def main():
               compare(small.data.bvh, *odd))
     timings = {}
     for name, rays in (("camera", cam), ("pair", pair)):
-        plain = cuda_ms(lambda: T.traverse_plain(kb, *rays), 2)
+        plain = cuda_ms(lambda: T.traverse_plain(kb, *rays), 1, warm=False)
         kern = cuda_ms(lambda: T.traverse(kb, *rays), 20)
         kern2 = cuda_ms(lambda: T.traverse(kb, *rays), 20)
-        plain2 = cuda_ms(lambda: T.traverse_plain(kb, *rays), 2)
-        timings[name] = (min(kern, kern2), min(plain, plain2))
+        timings[name] = (min(kern, kern2), plain)
         print(f"traverse {name} launch, {rays[0].shape[0]} rays: kernel "
               f"{timings[name][0]:.3f} ms, plain {timings[name][1]:.3f} ms  [{card}]")
     print(f"kernel vs plain: bit-equal, max |dt| {err}")
@@ -824,8 +960,7 @@ def main():
             b1 = cuda_ms(lambda: T.traverse(kb, *pair), 20)   # the yardstick, B1
             kern2 = cuda_ms(lambda: I.instance_traverse(*args), 20)
             b1 = min(b1, cuda_ms(lambda: T.traverse(kb, *pair), 20))
-            plain2 = cuda_ms(lambda: I.instance_traverse_plain(*args), 1, warm=False)
-            inst_timing[label, name] = (min(kern, kern2), min(plain, plain2))
+            inst_timing[label, name] = (min(kern, kern2), plain)
             print(f"instance_traverse {label} {name} launch, {args[1].shape[0]} rays: kernel "
                   f"{inst_timing[label, name][0]:.3f} ms, plain "
                   f"{inst_timing[label, name][1]:.3f} ms; B1 on the large knot's pair launch "
@@ -987,10 +1122,31 @@ def main():
     # ---- 15: BASELINE config 3; 16: the all-kinds scene ----
     with tempfile.TemporaryDirectory(prefix="config3_") as tmp:
         scene_file_render("config 3", write_env_material_scene(tmp, large=True), 256,
-                          (0.5, 0.625, 0.5, 0.625), 6, dev, card)
+                          (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 6}, dev, card)
     with tempfile.TemporaryDirectory(prefix="all_kinds_") as tmp:
         scene_file_render("all kinds", write_all_kinds_scene(tmp), 64,
-                          (0.25, 0.75, 0.25, 0.75), 6, dev, card)
+                          (0.25, 0.75, 0.25, 0.75), {"bvh_traverse": 6}, dev, card)
+
+    # ---- 17: every sampler kind on the card ----
+    sampler_draws(dev, card)
+
+    # ---- 18: BASELINE config 2; 19: BASELINE config 4; 20: the volpath scene ----
+    with tempfile.TemporaryDirectory(prefix="config2_") as tmp:
+        scene_file_render("config 2", write_config2_scene(tmp), 256, (0.5, 0.625, 0.5, 0.625),
+                          {"bvh_traverse_packet": 6}, dev, card)
+    with tempfile.TemporaryDirectory(prefix="config4_") as tmp:
+        full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
+        os.mkdir(full)
+        os.mkdir(low)
+        # glass: the card's rounding moves a path through the knot's specular
+        # chains now and then, and a pixel averages 16 paths, so the crop is
+        # held on 95% of its pixels and its lanes on 99%
+        scene_file_render("config 4", write_config4_scene(full), 256, (0.5, 0.625, 0.5, 0.625),
+                          {"bvh_traverse": 6}, dev, card, timed=1,
+                          small_path=write_config4_scene(low, spp=16), crop_bound=0.95)
+    with tempfile.TemporaryDirectory(prefix="volpath_") as tmp:
+        scene_file_render("volpath", write_volpath_scene(tmp), 256, (0.5, 0.625, 0.5, 0.625),
+                          {"bvh_traverse": 6 + 5 * TR_SEGMENTS}, dev, card)
 
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "

@@ -1,7 +1,14 @@
 """Perspective and orthographic cameras: film samples -> world-space rays
 (port of those paths of pbrt_tpu/cameras/__init__.py, ray differentials
-included). Environment and realistic cameras, depth of field and a moving
-camera raise NotImplementedError."""
+and depth of field included). Environment and realistic cameras and a
+moving camera raise NotImplementedError.
+
+Depth of field (`lensradius` > 0) moves each ray's origin to a point of
+the lens disk and aims it at the ray's point on the plane of focus
+(`focaldistance`), as the reference's _lens_offset does. The orthographic
+camera keeps its differentials lens-free, as the reference does: their
+origins are the unlensed raster points and their direction the lensed
+ray's (pbrt-v3 offsets them too)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +19,7 @@ import torch
 
 from pbrt_tpu_torch.core.math import normalize, xform_point, xform_vector
 from pbrt_tpu_torch.core.ray import Rays
+from pbrt_tpu_torch.core.sampling import concentric_sample_disk
 from pbrt_tpu_torch.core.transform import orthographic, perspective, scale, translate
 
 
@@ -23,6 +31,8 @@ class CameraSpec:
     shutter_open: float = 0.0
     shutter_close: float = 1.0
     resolution: Tuple[int, int] = (640, 480)
+    lens_radius: float = 0.0
+    focal_distance: float = 1e6
 
 
 def _screen_window(aspect, given=None):
@@ -38,8 +48,6 @@ def make_camera(kind: str, params: dict, cam_to_world, resolution) -> CameraSpec
     Transform pair."""
     if kind not in ("perspective", "orthographic"):
         raise NotImplementedError(f"camera {kind!r} is not ported")
-    if float(params.get("lensradius", [0.0])[0]) > 0.0:
-        raise NotImplementedError("camera parameter 'lensradius' (depth of field) is not ported")
     start, end = cam_to_world
     if not np.allclose(start.m, end.m):
         raise NotImplementedError("a moving camera (animated CameraToWorld) is not ported")
@@ -58,7 +66,9 @@ def make_camera(kind: str, params: dict, cam_to_world, resolution) -> CameraSpec
     r2c = c2s.inverse() * s2r.inverse()
     return CameraSpec(kind, r2c.m, start.m,
                       float(params.get("shutteropen", [0.0])[0]),
-                      float(params.get("shutterclose", [1.0])[0]), tuple(resolution))
+                      float(params.get("shutterclose", [1.0])[0]), tuple(resolution),
+                      float(params.get("lensradius", [0.0])[0]),
+                      float(params.get("focaldistance", [1e6])[0]))
 
 
 def _raster_point(m, p3):
@@ -68,30 +78,55 @@ def _raster_point(m, p3):
     return xform_point(m, p3) / w[:, None]
 
 
-def generate_rays(spec: CameraSpec, p_film, differentials: bool = False):
+def _lens_offset(spec, p_lens, o, d):
+    """Camera-space rays (o, d) moved to lens points p_lens [N,2] (already
+    scaled by the lens radius) and aimed at their point on the plane of
+    focus -> (origin, direction)."""
+    ft = torch.full_like(d[:, 2], spec.focal_distance) / d[:, 2]
+    p_focus = o + d * ft[:, None]
+    o2 = torch.cat([p_lens, torch.zeros_like(p_lens[:, :1])], -1)
+    return o2, normalize(p_focus - o2)
+
+
+def generate_rays(spec: CameraSpec, p_film, differentials: bool = False, u_lens=None):
     """[N,2] raster positions -> (world Rays [N], weight [N]); with
     differentials, the rays through the raster points one pixel over in x
     and in y ride along (the reference's generate_ray_differential). A
     perspective ray leaves the eye through the raster point; an
-    orthographic one leaves the raster point along +z."""
+    orthographic one leaves the raster point along +z. u_lens [N,2], the
+    lens sample, is read where the lens radius is over 0."""
     n = p_film.shape[0]
     p3 = torch.cat([p_film, torch.zeros((n, 1), dtype=p_film.dtype, device=p_film.device)], -1)
     m, c2w = spec.raster_to_camera, spec.cam_to_world
     step = torch.eye(3, dtype=p3.dtype, device=p3.device) if differentials else None
+    lens = spec.lens_radius > 0.0
+    p_lens = spec.lens_radius * concentric_sample_disk(u_lens) if lens else None
     if spec.kind == "orthographic":
-        z = torch.zeros_like(p3)
-        z[:, 2] = 1.0
-        rays = Rays(xform_point(c2w, _raster_point(m, p3)), xform_vector(c2w, z))
+        o = _raster_point(m, p3)
+        d = torch.zeros_like(p3)
+        d[:, 2] = 1.0
+        if lens:
+            o, d = _lens_offset(spec, p_lens, o, d)
+        rays = Rays(xform_point(c2w, o), xform_vector(c2w, d))
         if differentials:
             rays.rx_o = xform_point(c2w, _raster_point(m, p3 + step[0]))
             rays.ry_o = xform_point(c2w, _raster_point(m, p3 + step[1]))
             rays.rx_d = rays.ry_d = rays.d
         return rays, torch.ones(n, dtype=p_film.dtype, device=p_film.device)
     d = normalize(_raster_point(m, p3))
-    o = xform_point(c2w, torch.zeros_like(d))
+    o_cam = torch.zeros_like(d)
+    if lens:
+        o_cam, d = _lens_offset(spec, p_lens, o_cam, d)
+    o = xform_point(c2w, o_cam)
     rays = Rays(o, xform_vector(c2w, d))
     if differentials:
-        rays.rx_o = rays.ry_o = o
-        rays.rx_d = xform_vector(c2w, normalize(_raster_point(m, p3 + step[0])))
-        rays.ry_d = xform_vector(c2w, normalize(_raster_point(m, p3 + step[1])))
+        for axis in (0, 1):
+            dd = normalize(_raster_point(m, p3 + step[axis]))
+            od = o
+            if lens:
+                # the reference aims from the main ray's lens point
+                od, dd = _lens_offset(spec, p_lens, o_cam, dd)
+                od = xform_point(c2w, od)
+            setattr(rays, "rx_o" if axis == 0 else "ry_o", od)
+            setattr(rays, "rx_d" if axis == 0 else "ry_d", xform_vector(c2w, dd))
     return rays, torch.ones(n, dtype=p_film.dtype, device=p_film.device)

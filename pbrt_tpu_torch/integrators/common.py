@@ -30,13 +30,17 @@ def bounce_base(bounce: int) -> int:
 
 
 def camera_rays(cs, px, py, sample_idx, spp_for_diff=None):
-    """Primary rays for pixels (px, py) at sample_idx -> (Rays, weight,
-    p_film). spp_for_diff: None, no ray differentials; else the sample
-    count they are scaled for (by 1/sqrt(spp) where it is over 1)."""
+    """Primary rays for pixels (px, py) at sample_idx, through the lens
+    where the camera has one -> (Rays, weight, p_film). spp_for_diff:
+    None, no ray differentials; else the sample count they are scaled for
+    (by 1/sqrt(spp) where it is over 1)."""
     u_film = sample_2d(cs.sampler, px, py, sample_idx, 0)
     p_film = torch.stack([px.to(torch.float32) + u_film[:, 0],
                           py.to(torch.float32) + u_film[:, 1]], -1)
-    rays, w = generate_rays(cs.camera, p_film, differentials=spp_for_diff is not None)
+    # the lens pair (dims 2, 3) only where the camera has a lens
+    u_lens = sample_2d(cs.sampler, px, py, sample_idx, 2) if cs.camera.lens_radius > 0.0 \
+        else None
+    rays, w = generate_rays(cs.camera, p_film, spp_for_diff is not None, u_lens)
     if spp_for_diff is not None and spp_for_diff > 1:
         # the reference's float32 1/sqrt(spp)
         rays = rays.scaled_differentials(float(np.float32(1.0) / np.sqrt(np.float32(spp_for_diff))))

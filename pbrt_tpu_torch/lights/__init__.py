@@ -86,13 +86,14 @@ def _read_light_map(path):
 
 def compile_lights(lights, shape_tri_range, tp, shape_quads, cwd="."):
     """Host: LightRecords -> dict(rows [(kind, L, params, l2w, w2l)],
-    tri_cdf, ltri [C,3,3], maps [K,64,64,3] or None, env [H,W,3] or None).
+    media (each row's outside medium name), tri_cdf, ltri [C,3,3], maps
+    [K,64,64,3] or None, env [H,W,3] or None).
     tp [T,3,3] holds the scene triangles; shape_quads maps a quadric
     shape's index to (its row, kind, params, o2w, reversed). An environment
     map that cannot be read is logged and its light is constant, as the
     reference treats it."""
     from pbrt_tpu_torch.io.image_io import read_image
-    rows, cdfs, ltris, maps = [], [], [], []
+    rows, media, cdfs, ltris, maps = [], [], [], [], []
     env = None
     for lr in lights:
         ps = lr.params
@@ -161,7 +162,8 @@ def compile_lights(lights, shape_tri_range, tp, shape_quads, cwd="."):
                     logging.getLogger(__name__).warning(
                         "environment map %s unreadable (%s): constant light", path, e)
         rows.append((kid, np.asarray(L, np.float32), params, lr.l2w, lr.w2l))
-    return {"rows": rows,
+        media.append(lr.medium)
+    return {"rows": rows, "media": media,
             "tri_cdf": np.concatenate(cdfs) if cdfs else np.zeros(1, np.float32),
             "ltri": np.concatenate(ltris) if ltris else np.zeros((1, 3, 3), np.float32),
             "maps": np.stack(maps).astype(np.float32) if maps else None, "env": env}

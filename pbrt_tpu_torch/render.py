@@ -1,6 +1,6 @@
 """Render driver: CompiledScene -> image (port of
 pbrt_tpu/render.py::render_sampler_integrator without checkpoints,
-previews or the stats report).
+previews or the stats report), for the path and volpath integrators.
 
 All pixels of the film's sample bounds, in Morton order, times k sample
 indices make one wavefront pass of about `wavefront_size` lanes; each
@@ -17,6 +17,9 @@ import torch
 from pbrt_tpu_torch.film import FilmState, add_samples, develop
 from pbrt_tpu_torch.filters import build_table
 from pbrt_tpu_torch.integrators.path import COUNTERS, li_path
+from pbrt_tpu_torch.integrators.volpath import li_volpath
+
+INTEGRATORS = {"path": li_path, "volpath": li_volpath}
 
 
 @dataclasses.dataclass
@@ -53,8 +56,9 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
     counters {name: int} summed over all passes, number of passes). An
     ordinary render records no autograd tape (diff/ records one)."""
     options = options or Options()
-    if cs.integrator_kind != "path":
+    if cs.integrator_kind not in INTEGRATORS:
         raise NotImplementedError(f"integrator {cs.integrator_kind!r} is not ported")
+    li = INTEGRATORS[cs.integrator_kind]
     dev = cs.device
     px_np, py_np = sample_pixels(cs.film)
     n_pix = px_np.shape[0]
@@ -76,8 +80,7 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
         pxs = px.repeat(kk)
         pys = py.repeat(kk)
         sidx = (s + torch.arange(kk, device=dev).repeat_interleave(n_pix)).to(torch.int32)
-        L, p_film, ray_w, cnt = li_path(cs, pxs, pys, sidx, max_depth=max_depth,
-                                        rr_threshold=rr)
+        L, p_film, ray_w, cnt = li(cs, pxs, pys, sidx, max_depth=max_depth, rr_threshold=rr)
         film = add_samples(cs.film, film, p_film, L, ray_w, table)
         for c in COUNTERS:
             totals[c] += cnt[c]

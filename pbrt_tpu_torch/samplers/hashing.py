@@ -28,6 +28,14 @@ def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & M32
 
 
+def mul32t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^32 for two tensors of u32 words, in 16-bit halves of b
+    so that no product leaves the int64 range."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
 def pcg_hash(x: torch.Tensor) -> torch.Tensor:
     """PCG-RXS-M-XS style 32-bit mix."""
     state = (mul32(x, 747796405) + 2891336453) & M32
@@ -45,9 +53,21 @@ def hash3(a, b, c):
     return hash_combine(hash_combine(a, b), c)
 
 
+def hash4(a, b, c, d):
+    return hash_combine(hash3(a, b, c), d)
+
+
 def u32_to_float(u: torch.Tensor) -> torch.Tensor:
     """u32 word -> float32 in [0, 1)."""
     return torch.clamp(u.to(torch.float32) * _INV_U32, max=ONE_MINUS_EPS)
+
+
+def uniform_float(*keys):
+    """Hash u32 keys (the first a tensor) to a float32 in [0, 1)."""
+    h = keys[0]
+    for k in keys[1:]:
+        h = hash_combine(h, k)
+    return u32_to_float(h)
 
 
 def reverse_bits32(x: torch.Tensor) -> torch.Tensor:
@@ -77,3 +97,39 @@ def nested_uniform_shuffle(i: torch.Tensor, n_pow2_mask: int, seed):
     """Owen-shuffle index i within a power-of-two domain."""
     x = laine_karras_permutation(reverse_bits32(i), seed)
     return reverse_bits32(x) & n_pow2_mask
+
+
+def cmj_permute(i: torch.Tensor, l: int, p: torch.Tensor) -> torch.Tensor:
+    """Kensler's cycle-walking pseudorandom permutation of [0, l) for u32
+    indices i and pattern keys p (the stratified sampler's stratum
+    shuffle): 8 cycle-walk rounds, then i % l for the rare lane still out
+    of range, as the reference unrolls it."""
+    if l <= 1:
+        return torch.zeros_like(i)
+    w = (1 << (l - 1).bit_length()) - 1
+
+    def rounds(i):
+        i = i ^ p
+        i = mul32(i, 0xe170893d)
+        i = i ^ (p >> 16)
+        i = i ^ ((i & w) >> 4)
+        i = i ^ (p >> 8)
+        i = mul32(i, 0x0929eb3f)
+        i = i ^ (p >> 23)
+        i = i ^ ((i & w) >> 1)
+        i = mul32t(i, 1 | (p >> 27))
+        i = mul32(i, 0x6935fa69)
+        i = i ^ ((i & w) >> 11)
+        i = mul32(i, 0x74dcca23)
+        i = i ^ ((i & w) >> 2)
+        i = mul32(i, 0x9e501cc3)
+        i = i ^ ((i & w) >> 2)
+        i = mul32(i, 0xc860a3df)
+        i = i & w
+        return i ^ (i >> 5)
+
+    out = rounds(i)
+    for _ in range(8):
+        out = torch.where(out >= l, rounds(out), out)
+    out = torch.where(out >= l, i % l, out)
+    return ((out + p) & M32) % l

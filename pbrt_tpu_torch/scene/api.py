@@ -4,9 +4,11 @@ prototypes behind per-instance transform pairs; a prototype that holds a
 quadric or an emitter is baked, and an animated quadric stays at its start
 transform, as in the reference. Textures are named per graphics state,
 float and spectrum apart; a texture, a material or a mesh's alpha mask
-that names one holds its id. Directives the port does not cover yet
-(media, TransformTimes other than 0 1) raise NotImplementedError naming
-what they met. The shapes are those of shapes/factory.py."""
+that names one holds its id. Named media and the medium interface of
+the graphics state are recorded on the camera, every shape and every
+light, by name, as the reference records them. Directives the port does
+not cover yet (TransformTimes other than 0 1) raise NotImplementedError
+naming what they met. The shapes are those of shapes/factory.py."""
 from __future__ import annotations
 
 import copy
@@ -54,6 +56,8 @@ class ShapeRecord:
     quad_area: float = 0.0
     o2w: np.ndarray = None          # and its object<->world matrices
     w2o: np.ndarray = None
+    medium_inside: str = ""         # the MediumInterface at declaration
+    medium_outside: str = ""
 
 
 @dataclasses.dataclass
@@ -63,6 +67,7 @@ class LightRecord:
     l2w: np.ndarray
     w2l: np.ndarray
     shape_index: int = -1           # area lights: index into shapes
+    medium: str = ""                # the outside medium at declaration
 
 
 @dataclasses.dataclass
@@ -73,11 +78,14 @@ class GraphicsState:
     reverse_orientation: bool = False
     float_textures: Dict[str, int] = dataclasses.field(default_factory=dict)
     spectrum_textures: Dict[str, int] = dataclasses.field(default_factory=dict)
+    medium_inside: str = ""
+    medium_outside: str = ""
 
     def clone(self):
         return GraphicsState(self.material, dict(self.named_materials),
                              self.area_light, self.reverse_orientation,
-                             dict(self.float_textures), dict(self.spectrum_textures))
+                             dict(self.float_textures), dict(self.spectrum_textures),
+                             self.medium_inside, self.medium_outside)
 
 
 class TransformSet:
@@ -103,6 +111,8 @@ class SceneDescription:
         self.textures: List[TextureDecl] = []
         self.shapes: List[ShapeRecord] = []
         self.lights: List[LightRecord] = []
+        self.media: Dict[str, Tuple[str, ParamSet, np.ndarray]] = {}   # name -> (kind, ps, l2w)
+        self.camera_medium_name = ""
         self.camera_kind = "perspective"
         self.camera_params = ParamSet()
         self.camera_to_world = (Transform(), Transform())
@@ -204,6 +214,7 @@ class Api:
     def camera(self, kind, ps):
         self.scene.camera_kind = kind
         self.scene.camera_params = ps
+        self.scene.camera_medium_name = self.gs.medium_outside
         self.scene.camera_to_world = (self.ctm.t[0].inverse(), self.ctm.t[1].inverse())
         self.named_coord_systems["camera"] = self.ctm.clone()
 
@@ -302,19 +313,20 @@ class Api:
     # -- lights ----------------------------------------------------------
     def light_source(self, kind, ps):
         l2w = self.ctm.t[0]
-        self.scene.lights.append(LightRecord(kind, ps, l2w.m.copy(), l2w.m_inv.copy()))
+        self.scene.lights.append(LightRecord(kind, ps, l2w.m.copy(), l2w.m_inv.copy(),
+                                             medium=self.gs.medium_outside))
 
     def area_light_source(self, kind, ps):
         self.gs.area_light = (kind, ps)
 
-    # -- media: not ported ------------------------------------------------
+    # -- media -----------------------------------------------------------
     def make_named_medium(self, name, ps):
-        raise NotImplementedError(f"MakeNamedMedium {name!r} is not ported")
+        self.scene.media[name] = (ps.find_one_string("type", "homogeneous"), ps,
+                                  self.ctm.t[0].m.copy())
 
     def medium_interface(self, inside, outside):
-        if inside or outside:
-            raise NotImplementedError(
-                f"MediumInterface {inside!r} {outside!r} is not ported")
+        self.gs.medium_inside = inside
+        self.gs.medium_outside = outside
 
     # -- instancing ------------------------------------------------------
     def object_begin(self, name):
@@ -385,6 +397,8 @@ class Api:
                 rec.mesh.shadow_alpha_tex = sa if sa >= 0 else rec.mesh.alpha_tex
             rec.material = self.gs.material
             rec.reverse_orientation = self.gs.reverse_orientation
+            rec.medium_inside = self.gs.medium_inside
+            rec.medium_outside = self.gs.medium_outside
             if self.gs.area_light is not None:
                 akind, aps = self.gs.area_light
                 rec.area_light = len(self.scene.lights)

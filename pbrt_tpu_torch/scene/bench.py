@@ -49,6 +49,26 @@ matte backdrop, lit by a goniometric and a projection light with maps and
 a dim constant environment, chosen per shading point by the "spatial"
 strategy; write_all_kinds_scene writes it with its fourier table and maps.
 
+BASELINE.json's second configuration ("path integrator, PLY triangle mesh
+with BVH accelerator, area light, stratified sampler"; its bunny is not in
+the repo) is the PLY bench scene with the stratified sampler, 4x4
+jittered (16 spp), at depth 5, under the bench's area and constant
+lights; its small variant reads the small knot at 64x64.
+
+BASELINE.json's fourth configuration ("glass/mirror specular transport +
+depth-of-field perspective camera, Sobol (0-2) sampler, 256 spp") is the
+large knot, read from a PLY file, as glass (eta 1.5) before a mirror
+quad, over the matte floor and under the bench's lights, seen through a
+lens of radius 0.1 focused on the knot (5.196 units away, so the floor
+blurs), with the reference-matched global Sobol' sampler at 256 spp,
+depth 5; its small variant has the small knot at 64x64.
+
+The volpath scene is the large bench scene (its knot from a PLY file)
+under the volumetric path integrator at depth 5: the camera sits in a
+thin homogeneous fog, and the knot in a box of material "none" (a medium
+interface) that holds a 32^3 grid medium of seeded smooth density with
+g = 0.3; 4 spp. Its "homogeneous" variant has the fog alone (no box).
+
 The PLY bench scene keeps the large scene's text, resolution, sampler and
 depth, and reads its knot, 448x112 (100,352 triangles, with normals and
 uv), from a binary little-endian PLY file written at run time; its
@@ -621,3 +641,134 @@ def write_all_kinds_scene(dirname, res=64, spp=8, voxels=16, strategy="spatial")
     with open(path, "w") as f:
         f.write(all_kinds_scene_text(res, spp, voxels, strategy))
     return path
+
+
+STRATIFIED = ('Sampler "stratified" "integer xsamples" 4 "integer ysamples" 4 '
+              '"bool jitter" "true"')
+
+
+def _knot_scene_file(dirname, text, knot):
+    """Write text as scene.pbrt with its knot.ply, a knot of (n_u, n_v)
+    segments, into dirname -> the scene file's path."""
+    write_knot_ply(os.path.join(dirname, "knot.ply"), *knot)
+    path = os.path.join(dirname, "scene.pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def write_config2_scene(dirname, large=True, res=None):
+    """Write BASELINE config 2 (scene.pbrt, knot.ply) into dirname -> the
+    scene file's path; res defaults to 256 (large) or 64."""
+    text = ply_scene_text('Shape "plymesh" "string filename" "knot.ply"').replace(
+        'Sampler "02sequence" "integer pixelsamples" 4', STRATIFIED).replace(
+        '"integer maxdepth" 4', '"integer maxdepth" 5').replace(
+        "[256]", f"[{res or (256 if large else 64)}]")
+    return _knot_scene_file(dirname, text, PLY_KNOT if large else KNOT[False])
+
+
+CONFIG4_SCENE = """
+LookAt 3 3 3  0 0 0  0 1 0
+Camera "perspective" "float fov" 40 "float lensradius" 0.1 "float focaldistance" 5.196
+Film "image" "integer xresolution" [{RES}] "integer yresolution" [{RES}]
+Sampler "sobol" "integer pixelsamples" {SPP}
+Integrator "path" "integer maxdepth" 5
+WorldBegin
+LightSource "infinite" "rgb L" [0.3 0.35 0.4]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [8 8 8]
+  Translate 0 4 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1]
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.5 0.5 0.5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-10 -1 -10  10 -1 -10  10 -1 10  -10 -1 10]
+AttributeEnd
+AttributeBegin
+  Material "mirror"
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-2.6 -1 -2.2  1.6 -1 -2.2  1.6 2 -2.2  -2.6 2 -2.2]
+AttributeEnd
+AttributeBegin
+  Material "glass" "float eta" 1.5
+  Shape "plymesh" "string filename" "knot.ply"
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_config4_scene(dirname, large=True, res=None, spp=256):
+    """Write BASELINE config 4 (scene.pbrt, knot.ply) into dirname -> the
+    scene file's path; res defaults to 256 (large) or 64."""
+    text = CONFIG4_SCENE.replace("{RES}", str(res or (256 if large else 64))).replace(
+        "{SPP}", str(spp))
+    return _knot_scene_file(dirname, text, KNOT[large])
+
+
+FOG = ('MakeNamedMedium "fog" "string type" "homogeneous" "rgb sigma_a" [0.004 0.004 0.005] '
+       '"rgb sigma_s" [0.02 0.022 0.026]\nMediumInterface "" "fog"\n')
+SMOKE_BOX = ((-1.6, -0.98, -0.8), (1.6, 1.3, 0.8))   # the grid's box around the knot
+
+
+def smoke_density(n=32, seed=0):
+    """[n^3] smooth density in [0, 1], x fastest: a sum of seeded Gaussian
+    blobs over a faint floor."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(n) + 0.5) / n
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    d = np.full(x.shape, 0.05)
+    for cx, cy, cz, r, a in rng.uniform([0.2, 0.2, 0.2, 0.12, 0.5], [0.8, 0.8, 0.8, 0.3, 1.0],
+                                        (8, 5)):
+        d += a * np.exp(-((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2) / (2 * r * r))
+    return (d / d.max()).reshape(-1)
+
+
+def box_mesh(lo, hi):
+    """A closed box's 12 triangles, wound so that their normals point out ->
+    the trianglemesh's parameter text."""
+    lo, hi = np.asarray(lo, float), np.asarray(hi, float)
+    p = np.array([[hi[i] if (k >> i) & 1 else lo[i] for i in range(3)] for k in range(8)])
+    quads = [(0, 2, 3, 1), (4, 5, 7, 6), (0, 1, 5, 4), (2, 6, 7, 3), (0, 4, 6, 2), (1, 3, 7, 5)]
+    centre, idx = 0.5 * (lo + hi), []
+    for q in quads:
+        for tri in ((q[0], q[1], q[2]), (q[0], q[2], q[3])):
+            a, b, c = p[list(tri)]
+            n = np.cross(a - c, b - c)   # the geometric normal of (p0, p1, p2)
+            idx += tri if np.dot(n, (a + b + c) / 3 - centre) > 0 else tri[::-1]
+    return ('"integer indices" [{}] "point P" [{}]'.format(
+        " ".join(map(str, idx)), " ".join(repr(float(v)) for v in p.reshape(-1))))
+
+
+def volpath_scene_text(large=True, res=None, spp=4, grid=True, n_grid=32, seed=0) -> str:
+    """The volpath scene (without grid: the fog alone) with its knot read
+    from knot.ply."""
+    text = ply_scene_text('Shape "plymesh" "string filename" "knot.ply"').replace(
+        'Integrator "path" "integer maxdepth" 4', 'Integrator "volpath" "integer maxdepth" 5')
+    text = text.replace('Sampler "02sequence" "integer pixelsamples" 4',
+                        f'Sampler "02sequence" "integer pixelsamples" {spp}')
+    text = text.replace("[256]", f"[{res or (256 if large else 64)}]")
+    text = text.replace("LookAt", FOG + "LookAt", 1)
+    if grid:
+        lo, hi = SMOKE_BOX
+        dens = " ".join(f"{v:.4g}" for v in smoke_density(n_grid, seed))
+        text = text.replace("WorldEnd", f"""AttributeBegin
+  MakeNamedMedium "smoke" "string type" "heterogeneous" "integer nx" {n_grid}
+    "integer ny" {n_grid} "integer nz" {n_grid} "point p0" [{lo[0]} {lo[1]} {lo[2]}]
+    "point p1" [{hi[0]} {hi[1]} {hi[2]}] "rgb sigma_a" [0.5 0.5 0.5]
+    "rgb sigma_s" [2 1.8 1.5] "float g" 0.3 "float density" [{dens}]
+  MediumInterface "smoke" "fog"
+  Material "none"
+  Shape "trianglemesh" {box_mesh(lo, hi)}
+AttributeEnd
+WorldEnd""")
+    return text
+
+
+def write_volpath_scene(dirname, large=True, res=None, spp=4, grid=True, knot=None):
+    """Write the volpath scene (scene.pbrt, knot.ply) into dirname -> the
+    scene file's path; res defaults to 256 (large) or 64; knot: (n_u, n_v)
+    of another knot."""
+    return _knot_scene_file(dirname, volpath_scene_text(large, res, spp, grid),
+                            knot or KNOT[large])

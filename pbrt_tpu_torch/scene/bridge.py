@@ -6,7 +6,9 @@ ARRAY_KEYS; a scene with quadrics adds n_quadrics, quad_type, quad_o2w,
 quad_w2o, quad_params, quad_prim and the primitive records prim_material,
 prim_light and prim_rev; n_textures, mats.tex and the texture table as
 TEX_KEYS; the fourier tables as fourier.<key> with n_fourier, the table
-count; the flags' bsdf_fams), plus its specs as plain dicts, and builds the port's
+count; the flags' bsdf_fams; the media: n_media, any_grid_media,
+prim_medium, camera_medium, lights.medium and the medium table as
+media.<key>), plus its specs as plain dicts, and builds the port's
 CompiledScene on a chosen device. Tests use it so that both packages
 compute on identical tables; the port's own front end must produce tables
 equal to `tables_from_jax_arrays` of the same scene.
@@ -20,7 +22,8 @@ from pbrt_tpu_torch.accel.traverse import KernelBVH, LEAF_TRIS, tree_depth
 from pbrt_tpu_torch.cameras import CameraSpec
 from pbrt_tpu_torch.film import FilmSpec
 from pbrt_tpu_torch.filters import FilterSpec
-from pbrt_tpu_torch.samplers import SamplerSpec, PORTED_KINDS
+from pbrt_tpu_torch.media import MEDIUM_KEYS
+from pbrt_tpu_torch.samplers import SamplerSpec
 from pbrt_tpu_torch.scene.build import ENV_KEYS, scene_from_tables
 
 # the fourier tables' arrays (fourier.<key>)
@@ -41,7 +44,9 @@ ARRAY_KEYS = (
     "mats.child", "lights.l2w", "lights.w2l", "lights.limg", "lights.env_image",
     "lights.env_cond_func", "lights.env_cond_cdf", "lights.env_cond_int",
     "lights.env_marg_cdf", "lights.env_marg_int", "bsdf_fams", "n_fourier",
-    *(f"fourier.{k}" for k in FOURIER_KEYS))
+    *(f"fourier.{k}" for k in FOURIER_KEYS),
+    "n_media", "any_grid_media", "prim_medium", "camera_medium", "lights.medium",
+    *(f"media.{k}" for k in MEDIUM_KEYS))
 # the instance world's arrays: present (not None) only in scenes with instances
 IBVH_KEYS = ("metas", "nodes", "tris", "order", "imat", "iroot", "ianim", "i2w", "w2p",
              "wlo", "whi")
@@ -129,6 +134,13 @@ def tables_from_jax_arrays(a: dict) -> dict:
     for k in ("l2w", "w2l"):
         t[f"light_{k}"] = np.asarray(a[f"lights.{k}"], np.float32)
     t["light_maps"] = np.asarray(a["lights.limg"], np.float32)
+    t["light_medium"] = np.asarray(a["lights.medium"], np.int32)
+    t["n_media"] = int(a["n_media"])
+    t["any_grid_media"] = bool(a["any_grid_media"])
+    t["prim_medium"] = np.asarray(a["prim_medium"], np.int32).reshape(-1, 2)
+    t["camera_medium"] = int(a["camera_medium"])
+    for k in MEDIUM_KEYS:
+        t[f"med_{k}"] = np.asarray(a[f"media.{k}"], np.int32 if k == "kind" else np.float32)
     t["env_image"] = np.asarray(a["lights.env_image"], np.float32)
     for k, j in zip(ENV_KEYS, ("cond_func", "cond_cdf", "cond_int", "marg_cdf", "marg_int")):
         t[k] = np.asarray(a[f"lights.env_{j}"], np.float32)
@@ -150,13 +162,12 @@ def from_jax_arrays(arrays: dict, specs: dict, device="cuda"):
     specs: {"camera": {raster_to_camera, cam_to_world, shutter_open,
     shutter_close, resolution}, "film": {full_resolution, crop_window,
     filename, scale, max_sample_luminance}, "filter": FilterSpec fields,
-    "sampler": {kind, spp, seed, resolution}, "integrator_kind",
-    "integrator_params"}."""
-    s = specs["sampler"]
-    if s["kind"] not in PORTED_KINDS:
-        raise NotImplementedError(f"sampler {s['kind']!r} is not ported")
+    "sampler": SamplerSpec fields, "integrator_kind", "integrator_params"};
+    the camera's lens_radius and focal_distance may be left out (no
+    lens)."""
+    s = dict(specs["sampler"], resolution=tuple(specs["sampler"]["resolution"]))
     camera = CameraSpec(**{"kind": "perspective", **specs["camera"]})
     film = FilmSpec(filter=FilterSpec(**specs["filter"]), **specs["film"])
-    sampler = SamplerSpec(s["kind"], int(s["spp"]), int(s["seed"]), tuple(s["resolution"]))
+    sampler = SamplerSpec(**s)
     return scene_from_tables(tables_from_jax_arrays(arrays), camera, film, sampler,
                              specs["integrator_kind"], specs["integrator_params"], device)

@@ -2,7 +2,8 @@
 the slice's part of pbrt_tpu/scene/build.py): the global triangle table,
 the world BVH and its kernel tables, slot-keyed hit attributes (with each
 triangle's alpha-mask texture ids), the instance world, the quadric table,
-the texture table with its image atlas, material tables with their fourier
+the medium table with each primitive's, each light's and the camera's
+medium, the texture table with its image atlas, material tables with their fourier
 tables, light tables with the environment map's importance tables and the
 projection / goniometric map tiles, the light power distribution (and the
 spatial strategy's voxel grid), and the camera, film and sampler specs."""
@@ -27,6 +28,7 @@ from pbrt_tpu_torch.lights import (compile_lights, env_tables, light_power, L_AR
 from pbrt_tpu_torch.lights.distrib import build_spatial_distrib
 from pbrt_tpu_torch.materials import compile_materials, material_families
 from pbrt_tpu_torch.materials.fourier import fourier_tables, table_on
+from pbrt_tpu_torch.media import compile_media, medium_table
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene.api import Api, SceneDescription
 from pbrt_tpu_torch.scene.parser import parse_file, parse_string
@@ -127,8 +129,9 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
     once, in prototype space. The world BVH covers the world rows only; the
     instance world's prototype subtrees index the prototype rows. Every
     shape, mesh or quadric, is one primitive record, in shape order."""
+    media, med_ids, any_grid = compile_media(desc.media)
     tri_p, tri_n, tri_uv, tri_prim, tri_has_n = [], [], [], [], []
-    prim_material, prim_light, prim_rev, prim_alpha = [], [], [], []
+    prim_material, prim_light, prim_rev, prim_alpha, prim_medium = [], [], [], [], []
     quads = []             # (kind, o2w, w2o, params, prim)
     shape_quads = {}       # shape index -> (quadric row, kind, params, o2w, reversed)
     n_tri = 0
@@ -139,6 +142,8 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
         prim_rev.append(rev)
         prim_alpha.append((rec.mesh.alpha_tex, rec.mesh.shadow_alpha_tex)
                           if rec.mesh is not None else (-1, -1))
+        prim_medium.append((med_ids.get(rec.medium_inside, -1),
+                            med_ids.get(rec.medium_outside, -1)))
         return len(prim_material) - 1
 
     def add_mesh(rec, light):
@@ -173,7 +178,10 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
     n_world = n_tri
     proto_rows = [[add_mesh(rec, -1) for rec in precs] for precs in desc.prototypes]
 
-    out = {"n_tris": n_world, "n_world_tris": n_world, "n_quadrics": len(quads)}
+    out = {"n_tris": n_world, "n_world_tris": n_world, "n_quadrics": len(quads),
+           "n_media": len(desc.media), "any_grid_media": any_grid,
+           "prim_medium": np.asarray(prim_medium or [(-1, -1)], np.int32).reshape(-1, 2),
+           "camera_medium": med_ids.get(desc.camera_medium_name, -1), **media}
     qprim = np.array([q[4] for q in quads], np.int32)
     out["quad_kind"] = np.array([q[0] for q in quads], np.int32)
     out["quad_o2w"] = np.array([q[1] for q in quads], np.float32).reshape(-1, 4, 4)
@@ -266,6 +274,8 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
     for i, (k, L, p, l2w, w2l) in enumerate(rows):
         out["light_kind"][i], out["light_L"][i], out["light_params"][i] = k, L, p
         out["light_l2w"][i], out["light_w2l"][i] = l2w, w2l
+    out["light_medium"] = np.full(Lc, -1, np.int32)
+    out["light_medium"][:len(rows)] = [med_ids.get(name, -1) for name in lt["media"]]
     out["ltri"] = lt["ltri"]
     out["n_lights"] = len(rows)
     out["light_maps"] = (lt["maps"] if lt["maps"] is not None
@@ -295,7 +305,7 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                       integrator_params, device) -> CompiledScene:
     """Host tables + specs -> CompiledScene with its tensors on `device`."""
     dev = torch.device(device)
-    if integrator_kind != "path":
+    if integrator_kind not in ("path", "volpath"):
         raise NotImplementedError(f"integrator {integrator_kind!r} is not ported")
     for k in integrator_params:
         if k not in _PORTED_INTEGRATOR_PARAMS:
@@ -334,14 +344,17 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                           ten(t["tri_cdf"]), ten(ltri[:, 0]), ten(ltri[:, 1]),
                           ten(ltri[:, 2]), ten(t["light_l2w"]), ten(t["light_w2l"]), env,
                           ten(t["light_maps"]) if t["light_maps"].shape[1] > 1 else None,
-                          mapped, np.asarray(t["light_w2l"], np.float32)),
+                          mapped, np.asarray(t["light_w2l"], np.float32),
+                          ten(t["light_medium"])),
         light_distr=Distribution1D.from_tables(t["light_func"], t["light_cdf"],
                                                t["light_func_int"], dev),
         world_center=np.asarray(t["world_center"], np.float32),
         world_radius=float(t["world_radius"]),
         ibvh=t["ibvh"].to(dev) if "ibvh" in t else None, quads=quads,
         fourier=table_on({k: t[f"fourier_{k}"] for k in ("mu", "a", "eta", "n_mu", "a0y", "cdf")},
-                         dev) if t["n_fourier"] else None)
+                         dev) if t["n_fourier"] else None,
+        prim_medium=ten(t["prim_medium"]), camera_medium=int(t["camera_medium"]),
+        media=medium_table(t, dev) if t["n_media"] else None)
     flags = SceneFlags(
         n_tris=int(t["n_tris"]), n_lights=n_lights,
         has_infinite=bool(np.any(kinds == L_INFINITE)),
@@ -357,7 +370,8 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         alpha_kinds=reachable_kinds(t["tex_kind"], t["tex_child"], alpha_ids),
         bsdf_fams=tuple(bool(b) for b in t["bsdf_fams"]),
         mat_kinds=tuple(int(k) for k in np.unique(t["mat_kind"])),
-        has_fourier=bool(t["n_fourier"]), light_strategy=strategy)
+        has_fourier=bool(t["n_fourier"]), light_strategy=strategy,
+        n_media=int(t["n_media"]), any_grid_media=bool(t["any_grid_media"]))
     if strategy == "spatial" and n_lights > 0:
         sv = integrator_params.get("spatialvoxels")
         data.light_spatial = build_spatial_distrib(

@@ -75,6 +75,10 @@ class ParamSet:
         v = self.values.get(name)
         return None if v is None else np.asarray(v, np.int32)
 
+    def find_floats(self, name):
+        v = self.values.get(name)
+        return None if v is None else np.asarray(v, np.float32)
+
     def find_point3s(self, name):
         v = self.values.get(name)
         return None if v is None else np.asarray(v, np.float32).reshape(-1, 3)

@@ -61,6 +61,7 @@ class LightTable:
     limg: Optional[torch.Tensor] = None   # [K,64,64,3] projection / goniometric maps
     mapped: Tuple[int, ...] = ()          # rows of the infinite lights with a map
     w2l_host: Optional[np.ndarray] = None  # w2l on the host
+    medium: Optional[torch.Tensor] = None  # [L] int32 the outside medium at declaration
     kinds: tuple = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -105,6 +106,9 @@ class SceneData:
     quads: Optional[QuadricTable] = None  # None without quadrics
     fourier: object = None                # FourierTable; None without fourier materials
     light_spatial: object = None          # SpatialLightDistrib of the "spatial" strategy
+    prim_medium: Optional[torch.Tensor] = None  # [P,2] int32 (inside, outside) medium, -1 vacuum
+    media: object = None                  # media.MediumTable
+    camera_medium: int = -1               # the camera's medium (-1: vacuum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +132,8 @@ class SceneFlags:
     mat_kinds: Tuple[int, ...] = ()      # material kind ids in the table, ascending
     has_fourier: bool = False
     light_strategy: str = "power"        # "power", "uniform" or "spatial"
+    n_media: int = 0                     # named media
+    any_grid_media: bool = False
 
 
 @dataclasses.dataclass

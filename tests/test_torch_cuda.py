@@ -1,6 +1,6 @@
 """The BVH (2- and 4-wide) and instance traversal kernels on the card, and
-the differentiable and textured paths that launch them, in a process
-without JAX.
+the differentiable, textured, sampler, depth-of-field and volumetric paths
+that launch them, in a process without JAX.
 
 Run on a machine with an NVIDIA GPU (`--noconftest` skips tests/conftest.py,
 which configures JAX; nothing here imports it):
@@ -439,6 +439,60 @@ def test_all_kinds_scene_is_finite_on_the_card(tmp_path):
     a, _, _ = render_sampler_integrator(load_scene(path, opts, "cuda"), opts)
     c, _, _ = render_sampler_integrator(load_scene(path, opts, "cpu"), opts)
     assert _crop_close(a, c) >= 0.99
+
+
+@pytest.mark.parametrize("kind,kw", [("stratified", dict(xsamples=4, ysamples=4)),
+                                     ("halton", {}), ("sobol", {}), ("sobol", dict(owen=True)),
+                                     ("maxmindist", {})])
+def test_sampler_draw_on_the_card_matches_the_cpu(kind, kw):
+    """The samplers' u32 hashes, digit permutations and Sobol' byte tables
+    on the card: dims 0-44 of 65,536 lanes bit-equal to the CPU's draw."""
+    needs_cuda()
+    from pbrt_tpu_torch.samplers import SamplerSpec, sample_2d, sample_dim
+    spec = SamplerSpec(kind, 16, 0, (256, 256), **kw)
+    rng = np.random.default_rng(9)
+    lanes = [rng.integers(0, 256, 65_536).astype(np.int32) for _ in range(2)]
+    lanes.append(rng.integers(0, spec.rounded_spp(), 65_536).astype(np.int32))
+    gpu, cpu = [torch.as_tensor(a, device="cuda") for a in lanes], [torch.as_tensor(a) for a in lanes]
+    for dim in range(45):
+        assert torch.equal(sample_dim(spec, *gpu, dim).cpu(), sample_dim(spec, *cpu, dim)), dim
+    assert torch.equal(sample_2d(spec, *gpu, 0).cpu(), sample_2d(spec, *cpu, 0))
+
+
+@pytest.mark.parametrize("scene", ["config4", "volpath"])
+def test_new_scene_crops_on_the_card_match_the_cpu(scene, tmp_path):
+    """The small BASELINE config 4 (a glass knot before a mirror through a
+    lens, Sobol' at 16 spp) and the small volpath scene (a fog and a grid
+    medium around the knot, 4 spp): B1 6 and 26 launches a pass (volpath:
+    6 bounce walks and 4 transmittance rounds for each of 5 shadow rays),
+    and the centre 32x32 crop finite, nonzero and close to the CPU's: on
+    >= 99% of its pixels for volpath; for config 4 on >= 95% of its
+    pixels and 99% of its lanes (li_path of each pixel at each sample
+    index), since a pixel averages 16 paths and through the glass knot
+    the card's rounding moves a path now and then."""
+    needs_cuda()
+    from pbrt_tpu_torch.scene.bench import write_config4_scene, write_volpath_scene
+    from pbrt_tpu_torch.scene.build import load_scene
+    path = (write_config4_scene(str(tmp_path), large=False, spp=16) if scene == "config4"
+            else write_volpath_scene(str(tmp_path), large=False))
+    opts = Options(crop_window=(0.25, 0.75, 0.25, 0.75))
+    before = T.traverse.launches
+    img, _, passes = render_sampler_integrator(load_scene(path, opts, "cuda"), opts)
+    torch.cuda.synchronize()
+    assert T.traverse.launches - before == (6 if scene == "config4" else 26) * passes
+    assert torch.isfinite(img).all() and float(img.sum()) > 0
+    cpu, _, _ = render_sampler_integrator(load_scene(path, opts, "cpu"), opts)
+    assert _crop_close(img, cpu) >= (0.95 if scene == "config4" else 0.99)
+    assert abs(float(img.mean()) - float(cpu.mean())) <= 0.01 * float(cpu.mean())
+    if scene == "config4":
+        from pbrt_tpu_torch.integrators.path import li_path
+        out = []
+        for dev in ("cuda", "cpu"):
+            cs = load_scene(path, opts, dev)
+            px, py = (torch.as_tensor(a, device=dev) for a in sample_pixels(cs.film))
+            sidx = torch.arange(16, device=dev, dtype=torch.int32).repeat_interleave(px.shape[0])
+            out.append(li_path(cs, px.repeat(16), py.repeat(16), sidx, max_depth=5)[0])
+        assert _crop_close(*out) >= 0.99
 
 
 # device kernels of one full render under torch.profiler before the new

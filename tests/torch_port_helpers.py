@@ -77,19 +77,27 @@ def jax_scene_arrays(cs):
         arrays[f"lights.{k}"] = a(getattr(d.lights, k))
     for k in ("func", "cdf", "func_int"):
         arrays[f"light_distr.{k}"] = a(getattr(d.light_distr, k))
+    arrays["lights.medium"] = a(d.lights.medium)
+    arrays["n_media"], arrays["any_grid_media"] = cs.flags.n_media, cs.flags.any_grid_media
+    arrays["prim_medium"], arrays["camera_medium"] = a(d.prim_medium), a(d.camera_medium)
+    for k in ("kind", "sigma_a", "sigma_s", "params", "w2m", "density"):
+        arrays[f"media.{k}"] = a(getattr(d.media, k))
     cam, film, s = cs.camera, cs.film, cs.sampler
     f = film.filter
     specs = {
         "camera": dict(kind=cam.kind, raster_to_camera=np.asarray(cam.raster_to_camera),
                        cam_to_world=np.asarray(cam.cam_to_world.start.m),
                        shutter_open=cam.shutter_open, shutter_close=cam.shutter_close,
-                       resolution=tuple(cam.resolution)),
+                       resolution=tuple(cam.resolution), lens_radius=cam.lens_radius,
+                       focal_distance=cam.focal_distance),
         "film": dict(full_resolution=tuple(film.full_resolution),
                      crop_window=tuple(film.crop_window), filename=film.filename,
                      scale=film.scale, max_sample_luminance=film.max_sample_luminance),
         "filter": dict(kind=f.kind, xwidth=f.xwidth, ywidth=f.ywidth, alpha=f.alpha,
                        b=f.b, c=f.c, tau=f.tau),
-        "sampler": dict(kind=s.kind, spp=s.spp, seed=s.seed, resolution=tuple(s.resolution)),
+        "sampler": dict(kind=s.kind, spp=s.spp, seed=s.seed, resolution=tuple(s.resolution),
+                        xsamples=s.xsamples, ysamples=s.ysamples, jitter=s.jitter,
+                        dimensions=s.dimensions, owen=s.owen),
         "integrator_kind": cs.integrator_kind,
         "integrator_params": dict(cs.integrator_params),
     }
@@ -135,3 +143,45 @@ def needs_cuda():
     import pytest
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+def hold_li(j_li, li, jcs, cs, n, res, spp, depth, seed):
+    """An integrator of both packages on n lanes (px, py < res, samples <
+    spp) at `depth`: >= 99% of lanes within rtol 1e-3 / atol 1e-4, the
+    means within 1%, p_film bit-equal and the same live-ray counts -> the
+    port's mean."""
+    import jax.numpy as jnp
+    px, py, s = lanes(n, res, spp, seed=seed)
+    L, p_film, _, cnt = li(cs, *(torch.as_tensor(a) for a in (px, py, s)), max_depth=depth)
+    jL, jp, _, jcnt = j_li(jcs, jnp.asarray(px), jnp.asarray(py), jnp.asarray(s),
+                           max_depth=depth, with_stats=True)
+    L, jL = L.numpy(), np.asarray(jL)
+    ok = np.all(np.abs(L - jL) <= 1e-4 + 1e-3 * np.abs(jL), axis=1)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert abs(L.mean() - jL.mean()) <= 0.01 * abs(jL.mean())
+    np.testing.assert_array_equal(p_film.numpy(), np.asarray(jp))
+    for k in ("camera_rays", "shadow_rays", "bounce_rays", "valid_hits"):
+        assert int(cnt[k]) == int(jcnt[k]), k
+    return L.mean()
+
+
+def jax_scene_file(path):
+    """The reference's scene file with kernel tables -> (its CPU-path scene,
+    arrays, specs)."""
+    from pbrt_tpu.scene import load_scene
+    with pallas_tables():
+        jcs = load_scene(path)
+    arrays, specs = jax_scene_arrays(jcs)
+    return (dataclasses.replace(jcs, flags=dataclasses.replace(jcs.flags, use_pallas=False)),
+            arrays, specs)
+
+
+def front_end_tables(path):
+    """The port's host tables of a scene file."""
+    from pbrt_tpu_torch.scene.api import Api
+    from pbrt_tpu_torch.scene.build import build_tables
+    from pbrt_tpu_torch.scene.parser import parse_file
+    api = Api()
+    api.cwd = os.path.dirname(path)
+    parse_file(path, api)
+    return build_tables(api.scene, api.cwd)
