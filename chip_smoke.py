@@ -131,7 +131,26 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      homogeneous fog with the knot in a box of grid medium, volpath at
      depth 5, 4 spp): the checks of phase 18 with B1 26 launches a pass (6
      bounce intersections and 4 transmittance rounds for each of 5 NEE
-     shadow rays), and the tracking loops' host reads a render.
+     shadow rays), and the tracking loops' host reads a render;
+  21. BASELINE config 3 under Integrator "whitted" and "directlighting"
+     (strategy "all" and "one"), depth 5, each through render_file once (the
+     warm-up) and then the checks of phase 15 with one timed render at 16
+     spp, the profiled render and the crops at 4 spp: B1 11 launches a pass
+     (6 intersections and one shadow ray a bounce from its one light);
+  22. the large bench scene (its knot read from a PLY file) under
+     Integrator "bdpt" at depth 4, 256x256, 4 spp (4 passes of 65,536
+     lanes, each a camera and a light subpath): render_file once, then the
+     checks of phase 15 with one timed render, the profiled render and the
+     crops at 1 spp (the CPU's BDPT crop walks the 73,728-triangle knot
+     with the plain walk): B1 28 launches a pass (5 camera and 4 light
+     subpath walks, 5 light-sample, 10 vertex and 4 camera connections),
+     the profile's device kernels and ms; the splat film of a full render
+     nonzero; the tensor ops of one pass on the card;
+  23. BDPT against the port's own integrators on the card: the env-lit
+     calibration scene (scene/bench.py calibration_scene, the reference's
+     tests/test_integrators.py scene) at 256x256 and 4 spp, BDPT's mean
+     within 5% of path's, and the fog scene, BDPT's mean within 8% of
+     volpath's (depth 3; the reference tests' bounds).
 Every profile records the device's activity only (kernels, copies and
 sets); its top ops are the kernels' ops by name (`kernel_op`).
 The line before the last is the kernels' JSON record, with each kernel's
@@ -158,12 +177,15 @@ from pbrt_tpu_torch import media as MD
 from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.integrators.volpath import TR_SEGMENTS
-from pbrt_tpu_torch.render import Options, render_sampler_integrator, sample_pixels
+from pbrt_tpu_torch.integrators import bdpt as BD
+from pbrt_tpu_torch.render import Options, render, render_file, render_sampler_integrator, \
+    sample_pixels
 from pbrt_tpu_torch.samplers import SamplerSpec, sample_2d, sample_dim
 from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
                                         build_instanced_bench_scene, build_ply_bench_scene,
                                         build_quadric_showcase, build_sphere_scene,
-                                        build_textured_bench_scene, write_all_kinds_scene,
+                                        build_textured_bench_scene, calibration_scene,
+                                        write_all_kinds_scene, write_bdpt_scene,
                                         write_config2_scene, write_config4_scene,
                                         write_env_material_scene, write_floor_image,
                                         write_volpath_scene)
@@ -463,7 +485,7 @@ def profile_render(cs, opts):
     its device ms in the render})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        render_sampler_integrator(cs, opts)
+        render(cs, opts)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.events() if e.device_type == cuda]
@@ -739,10 +761,11 @@ def lane_share(path, copt, dev):
 
 def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None,
                       crop_bound=0.99):
-    """Phases 15, 16 and 18 - 20: one scene file end to end on the card:
-    `timed` renders after a warm-up, each finite and nonzero with the
-    kernel launches want ({kernel: launches a pass}; no other kernel);
-    one render under torch.profiler; the crop bitwise equal over two
+    """Phases 15, 16 and 18 - 22: one scene file end to end on the card,
+    by its integrator (render): `timed` renders after a warm-up, each
+    finite and nonzero with the kernel launches want ({kernel: launches a
+    pass}; no other kernel); one render under torch.profiler; the crop
+    bitwise equal over two
     renders and close to the CPU crop (on >= crop_bound of its pixels; a
     bound under 0.99 comes with its lanes held to 99%, `lane_share`). small_path, where given, is the scene at a
     lower sample count for the profiled render and the crops.
@@ -761,7 +784,7 @@ def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_pa
           f"{cs.integrator_kind}, media {f.n_media} (grid {f.any_grid_media})")
     small = small_path or path
     copt = Options(crop_window=crop)
-    a, _, _ = render_sampler_integrator(load_scene(small, copt, dev), copt)
+    a, _, _ = render(load_scene(small, copt, dev), copt)
     torch.cuda.synchronize()   # the crop render is the warm-up
     opts = Options()
     walls, reads = [], []
@@ -769,7 +792,7 @@ def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_pa
         zero_counts()
         MD.HOST_READS["blocks"] = 0
         t0 = time.time()
-        img, cnt, passes = render_sampler_integrator(cs, opts)
+        img, cnt, passes = render(cs, opts)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
         reads.append(MD.HOST_READS["blocks"])
@@ -795,8 +818,8 @@ def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_pa
           f"{' (scaled by spp)' if small_path else ''}; "
           + ", ".join(f"{k} {mine[k]:.3f} ms" for k in want)
           + f"; top device ops (ms): {top}  [{card}]")
-    b, _, _ = render_sampler_integrator(load_scene(small, copt, dev), copt)
-    c, _, _ = render_sampler_integrator(load_scene(small, copt, "cpu"), copt)
+    b, _, _ = render(load_scene(small, copt, dev), copt)
+    c, _, _ = render(load_scene(small, copt, "cpu"), copt)
     if crop_bound < 0.99:
         share, n = lane_share(small, copt, dev)
         print(f"{label} 32x32 crop, li_path of its {n} lanes on the card against the CPU: "
@@ -843,6 +866,98 @@ def sampler_draws(dev, card, n=131_072, dims=45):
                 sample_dim(spec, *gpu, d)
         print(f"sampler {kind} {kw or ''}: dims 0-{dims - 1} at {n} lanes bit-equal to the CPU; "
               f"{ms:.3f} ms and {OpCount.n / dims:.1f} tensor ops a dimension  [{card}]")
+
+
+INTEGRATOR_LINES = (("whitted", 'Integrator "whitted" "integer maxdepth" 5'),
+                    ("directlighting all", 'Integrator "directlighting" "integer maxdepth" 5'),
+                    ("directlighting one", 'Integrator "directlighting" "integer maxdepth" 5 '
+                                           '"string strategy" "one"'))
+
+
+def entry_render(label, path, dev):
+    """Render a scene file through render_file (the CLI's entry) -> its
+    wall, the warm-up of the phase."""
+    t0 = time.time()
+    out, img = render_file(path, Options(outfile=os.path.join(os.path.dirname(path),
+                                                              "entry.png")), dev)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(img).all()) and float(img.sum()) > 0 and os.path.exists(out)):
+        raise AssertionError(f"{label}: render_file gave no finite, lit image")
+    print(f"{label}: render_file (parse, build, render, write) {time.time() - t0:.2f} s")
+
+
+def integrator_renders(dev, card):
+    """Phase 21: config 3 under whitted and directlighting."""
+    for label, line in INTEGRATOR_LINES:
+        with tempfile.TemporaryDirectory(prefix="integrator_") as tmp:
+            full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
+            os.mkdir(full)
+            os.mkdir(low)
+            path = write_env_material_scene(full, large=True, integrator=line)
+            entry_render(label, path, dev)
+            scene_file_render(label, path, 256, (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 11},
+                              dev, card, timed=1,
+                              small_path=write_env_material_scene(low, spp=4, integrator=line))
+
+
+def bdpt_render(dev, card):
+    """Phase 22: the large bench scene under bdpt."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            OpCount.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with tempfile.TemporaryDirectory(prefix="bdpt_") as tmp:
+        full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
+        os.mkdir(full)
+        os.mkdir(low)
+        path = write_bdpt_scene(full, large=True)
+        entry_render("bdpt", path, dev)
+        cs = scene_file_render("bdpt", path, 256, (0.5, 0.625, 0.5, 0.625),
+                               {"bvh_traverse": 28}, dev, card, timed=1,
+                               small_path=write_bdpt_scene(low, spp=1))
+        film, _, spp = BD.render_bdpt_film(cs, Options())
+        splat = film.splat.sum(-1)
+        if not bool(torch.isfinite(splat).all()) or float(splat.sum()) <= 0:
+            raise AssertionError("bdpt: the splat film of a full render is empty or not finite")
+        print(f"bdpt: splat film nonzero on {float((splat > 0).float().mean()):.4f} of its "
+              f"pixels, mean splat {float(splat.mean()) / 3 / spp:.6f} a sample")
+        px, py = (torch.as_tensor(a, device=dev) for a in sample_pixels(cs.film))
+        D = int(cs.integrator_params["maxdepth"][0]) + 1
+        OpCount.n = 0
+        with torch.no_grad(), OpCount():
+            BD._bdpt_sample(cs, px, py, torch.zeros_like(px), D)
+        print(f"bdpt: {OpCount.n} tensor ops a pass of {px.shape[0]} lanes on the card  [{card}]")
+
+
+def bdpt_calibration(dev, card):
+    """Phase 23: BDPT's mean against path's (env-lit) and volpath's (fog)."""
+    with tempfile.TemporaryDirectory(prefix="calibration_") as tmp:
+        for name, other, bound in (("env", "path", 0.05), ("fog", "volpath", 0.08)):
+            means = {}
+            for kind in ("bdpt", other):
+                path = os.path.join(tmp, f"{name}_{kind}.pbrt")
+                with open(path, "w") as f:
+                    f.write(calibration_scene(name, f'Integrator "{kind}" "integer maxdepth" 3',
+                                              res=256, spp=4))
+                t0 = time.time()
+                img, _, passes = render(load_scene(path, None, dev))
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                if not bool(torch.isfinite(img).all()):
+                    raise AssertionError(f"{name} scene under {kind}: not finite")
+                means[kind] = float(img.mean())
+                print(f"{name} calibration scene under {kind}: 256x256, 4 spp, depth 3, "
+                      f"{passes} passes in {wall:.3f} s, mean {means[kind]:.6f}  [{card}]")
+            rel = abs(means["bdpt"] - means[other]) / means[other]
+            print(f"{name}: bdpt's mean is {rel:.4f} off {other}'s (bound {bound})")
+            if not rel < bound:
+                raise AssertionError(f"{name}: bdpt's mean {means['bdpt']} is {rel:.4f} off "
+                                     f"{other}'s {means[other]}")
 
 
 def main():
@@ -1147,6 +1262,11 @@ def main():
     with tempfile.TemporaryDirectory(prefix="volpath_") as tmp:
         scene_file_render("volpath", write_volpath_scene(tmp), 256, (0.5, 0.625, 0.5, 0.625),
                           {"bvh_traverse": 6 + 5 * TR_SEGMENTS}, dev, card)
+
+    # ---- 21: whitted and directlighting; 22: BDPT; 23: BDPT against path and volpath ----
+    integrator_renders(dev, card)
+    bdpt_render(dev, card)
+    bdpt_calibration(dev, card)
 
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "

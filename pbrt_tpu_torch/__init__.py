@@ -13,6 +13,8 @@ traversal (csrc/bvh_traverse.cu) and the two-level instance traversal
 build/pbrt_tpu_torch/; CPU tensors take their plain PyTorch versions.
 
 Entry points: `python -m pbrt_tpu_torch scene.pbrt`, or
-scene.load_scene(...) + render.render_sampler_integrator(...). They run on
-the card unless given the CPU (`--device cpu`, device="cpu").
+scene.load_scene(...) + render.render(...) (which sends BDPT to
+integrators/bdpt.py::render_bdpt and every other integrator to
+render.render_sampler_integrator). They run on the card unless given the
+CPU (`--device cpu`, device="cpu").
 """

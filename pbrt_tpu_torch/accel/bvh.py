@@ -42,9 +42,8 @@ def _child_boxes(b_lo, b_hi, right, cnts):
 
 def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
               leaf_size: int = MAX_LEAF_PRIMS, split_method: str = "sah") -> HostBVH:
-    """Build over per-primitive world bounds [T,3] with the native builder."""
-    if split_method not in SPLIT_IDS:
-        raise NotImplementedError(f"BVH splitmethod {split_method!r}")
+    """Build over per-primitive world bounds [T,3] with the native builder;
+    an unknown split method builds with SAH, as in the reference."""
     fn = native.load("bvh_builder").pbrt_bvh_build
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -60,7 +59,7 @@ def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
     right, offs, cnts, ax = (np.empty(cap, np.int32) for _ in range(4))
     order = np.empty(T, np.int32)
     m = fn(lo.ctypes.data_as(f32p), hi.ctypes.data_as(f32p), T, leaf_size,
-           SPLIT_IDS[split_method], b_lo.ctypes.data_as(f32p),
+           SPLIT_IDS.get(split_method, SPLIT_IDS["sah"]), b_lo.ctypes.data_as(f32p),
            b_hi.ctypes.data_as(f32p), right.ctypes.data_as(i32p),
            offs.ctypes.data_as(i32p), cnts.ctypes.data_as(i32p),
            ax.ctypes.data_as(i32p), order.ctypes.data_as(i32p))

@@ -12,7 +12,7 @@ ray's (pbrt-v3 offsets them too)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,11 +20,14 @@ import torch
 from pbrt_tpu_torch.core.math import normalize, xform_point, xform_vector
 from pbrt_tpu_torch.core.ray import Rays
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
-from pbrt_tpu_torch.core.transform import orthographic, perspective, scale, translate
+from pbrt_tpu_torch.core.transform import apply_point, orthographic, perspective, scale, translate
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CameraSpec:
+    """world_to_camera, the float64 inverse of cam_to_world rounded to
+    float32, is derived at construction where it is not given (BDPT
+    projects points to the film with it)."""
     kind: str
     raster_to_camera: np.ndarray   # [4,4]
     cam_to_world: np.ndarray       # [4,4]
@@ -33,6 +36,14 @@ class CameraSpec:
     resolution: Tuple[int, int] = (640, 480)
     lens_radius: float = 0.0
     focal_distance: float = 1e6
+    camera_to_raster: Optional[np.ndarray] = None   # [4,4], the float64 inverse of raster_to_camera
+    screen_area: float = 1.0       # area of the film's window on the z = 1 plane (perspective)
+    world_to_camera: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.world_to_camera is None:
+            w2c = np.linalg.inv(np.asarray(self.cam_to_world, np.float64)).astype(np.float32)
+            object.__setattr__(self, "world_to_camera", w2c)
 
 
 def _screen_window(aspect, given=None):
@@ -64,11 +75,18 @@ def make_camera(kind: str, params: dict, cam_to_world, resolution) -> CameraSpec
            * scale([1.0 / (x1 - x0), 1.0 / (y0 - y1), 1.0])
            * translate([-x0, -y1, 0.0]))
     r2c = c2s.inverse() * s2r.inverse()
+    pmin = apply_point(r2c.m, np.zeros(3))
+    pmax = apply_point(r2c.m, np.array([resolution[0], resolution[1], 0.0]))
+    if kind == "perspective":
+        pmin = pmin / pmin[2]
+        pmax = pmax / pmax[2]
     return CameraSpec(kind, r2c.m, start.m,
                       float(params.get("shutteropen", [0.0])[0]),
                       float(params.get("shutterclose", [1.0])[0]), tuple(resolution),
                       float(params.get("lensradius", [0.0])[0]),
-                      float(params.get("focaldistance", [1e6])[0]))
+                      float(params.get("focaldistance", [1e6])[0]),
+                      np.linalg.inv(r2c.m.astype(np.float64)).astype(np.float32),
+                      float(abs((pmax[0] - pmin[0]) * (pmax[1] - pmin[1]))))
 
 
 def _raster_point(m, p3):

@@ -7,7 +7,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.core.math import PI, PI_OVER_2, PI_OVER_4, vec3, ONE_MINUS_EPSILON
+from pbrt_tpu_torch.core.math import INV_PI, PI, PI_OVER_2, PI_OVER_4, vec3, ONE_MINUS_EPSILON
 
 
 def uniform_sample_sphere(u):
@@ -37,6 +37,21 @@ def cosine_sample_hemisphere(u):
     d = concentric_sample_disk(u)
     z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2, min=0.0))
     return vec3(d[..., 0], d[..., 1], z)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
+
+
+def uniform_sample_cone(u, cos_theta_max):
+    cos_theta = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = u[..., 1] * 2.0 * PI
+    return vec3(torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta, cos_theta)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (2.0 * PI * (1.0 - cos_theta_max))
 
 
 def uniform_sample_triangle(u):

@@ -1,22 +1,28 @@
-"""Film: filter-weighted radiance accumulation (port of
-pbrt_tpu/film/__init__.py, without splats).
+"""Film: filter-weighted radiance accumulation and unfiltered splats (port
+of pbrt_tpu/film/__init__.py).
 
 The deposit is deterministic on every device: the (pixel, weight,
 radiance) entries of a wavefront are stably sorted by pixel, laid out in a
 dense [pixels, rank] table with no two entries in one cell, and summed
 along the rank axis in a fixed order. Float atomics (CUDA index_add_) would
-add in a different order on every run.
+add in a different order on every run. Splats (BDPT's light paths that
+reach the camera) go to the nearest pixel with the same ordered sum; only
+a film made with splats has their buffer, so a path film develops as
+before, op for op.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.spectrum import RGB_TO_Y
 from pbrt_tpu_torch.filters import FilterSpec, build_table
+
+
+SPLAT_CHUNK = 64   # the splat sum's ranks a table (_ordered_sum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,26 +83,41 @@ def make_film(params: dict, filt: FilterSpec, options=None) -> FilmSpec:
 class FilmState:
     rgb_sum: torch.Tensor     # [H, W, 3]
     weight_sum: torch.Tensor  # [H, W]
+    splat: Optional[torch.Tensor] = None   # [H, W, 3]; None on a film without splats
 
     @staticmethod
-    def zeros(spec: FilmSpec, device) -> "FilmState":
+    def zeros(spec: FilmSpec, device, splats: bool = False) -> "FilmState":
         w, h = spec.cropped_resolution
         return FilmState(torch.zeros((h, w, 3), device=device),
-                         torch.zeros((h, w), device=device))
+                         torch.zeros((h, w), device=device),
+                         torch.zeros((h, w, 3), device=device) if splats else None)
 
 
-def _ordered_sum(key, vals, n_keys):
+def _ordered_sum(key, vals, n_keys, chunk=None):
     """Per-key sums of vals [E, C] in a fixed order: stable sort by key,
-    scatter into a dense [n_keys, rank] table, sum over rank."""
+    scatter into a dense [n_keys, rank] table, sum over rank. chunk: the
+    most ranks a table holds; deeper keys take one table a chunk of ranks,
+    the chunks' sums added in order (bounds the memory where many entries
+    share a key)."""
     order = torch.sort(key, stable=True).indices
     k = key[order]
     v = vals[order]
     first = torch.searchsorted(k, k, right=False)
     rank = torch.arange(k.shape[0], device=k.device) - first
     width = int(rank.max()) + 1 if k.shape[0] else 1
-    table = torch.zeros((n_keys, width, vals.shape[1]), dtype=vals.dtype, device=vals.device)
-    table[k, rank] = v
-    return table.sum(1)
+    if chunk is None or width <= chunk:
+        table = torch.zeros((n_keys, width, vals.shape[1]), dtype=vals.dtype,
+                            device=vals.device)
+        table[k, rank] = v
+        return table.sum(1)
+    out = torch.zeros((n_keys, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    for r0 in range(0, width, chunk):
+        sel = (rank >= r0) & (rank < r0 + chunk)
+        table = torch.zeros((n_keys, chunk, vals.shape[1]), dtype=vals.dtype,
+                            device=vals.device)
+        table[k[sel], rank[sel] - r0] = v[sel]
+        out = out + table.sum(1)
+    return out
 
 
 def add_samples(spec: FilmSpec, state: FilmState, p_film, L, ray_weight, table) -> FilmState:
@@ -140,11 +161,29 @@ def add_samples(spec: FilmSpec, state: FilmState, p_film, L, ray_weight, table) 
             vals.append(torch.cat([w[:, None] * L, w[:, None]], 1)[ok])
     sums = _ordered_sum(torch.cat(keys), torch.cat(vals), H * W)
     return FilmState(state.rgb_sum + sums[:, :3].view(H, W, 3),
-                     state.weight_sum + sums[:, 3].view(H, W))
+                     state.weight_sum + sums[:, 3].view(H, W), state.splat)
 
 
-def develop(spec: FilmSpec, state: FilmState):
-    """Final [H, W, 3] linear RGB."""
+def add_splats(spec: FilmSpec, state: FilmState, p_film, v) -> FilmState:
+    """Splat deposits [N,3] at raster positions p_film [N,2]: the nearest
+    pixel, unfiltered, scaled by develop's splat_scale; non-finite values
+    and positions off the cropped film are dropped, and so are zero
+    values, which change no sum."""
+    x0, x1, y0, y1 = spec.pixel_bounds
+    H, W = state.splat.shape[:2]
+    ok = torch.isfinite(v).all(-1) & (v != 0.0).any(-1)
+    px = torch.floor(p_film[:, 0]).to(torch.int64)
+    py = torch.floor(p_film[:, 1]).to(torch.int64)
+    ok = ok & (px >= x0) & (px < x1) & (py >= y0) & (py < y1)
+    sums = _ordered_sum(((py - y0) * W + (px - x0))[ok], v[ok], H * W, chunk=SPLAT_CHUNK)
+    return FilmState(state.rgb_sum, state.weight_sum, state.splat + sums.view(H, W, 3))
+
+
+def develop(spec: FilmSpec, state: FilmState, splat_scale: float = 1.0):
+    """Final [H, W, 3] linear RGB: the filtered samples plus splat_scale
+    times the splats, where the film has them."""
     w = state.weight_sum[..., None]
     rgb = torch.where(w > 0.0, state.rgb_sum / torch.clamp(w, min=1e-20), 0.0)
+    if state.splat is not None:
+        rgb = rgb + splat_scale * state.splat
     return torch.clamp(rgb * spec.scale, min=0.0)

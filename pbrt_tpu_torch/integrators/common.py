@@ -1,6 +1,7 @@
 """Shared integrator machinery: camera rays, light selection by the
 "power", "uniform" or "spatial" strategy, NEE with MIS (delta lights take
-weight 1), light pdfs (port of pbrt_tpu/integrators/common.py).
+weight 1) with or without its shadow ray, light pdfs (port of
+pbrt_tpu/integrators/common.py).
 
 Static sampler dimension layout (the reference's):
   0,1 film jitter | 2,3 lens | 4 time
@@ -20,6 +21,7 @@ from pbrt_tpu_torch.core.sampling import power_heuristic
 from pbrt_tpu_torch.lights.distrib import spatial_pdf, spatial_sample_discrete
 from pbrt_tpu_torch.materials import bsdf as B
 from pbrt_tpu_torch.samplers import sample_2d
+from pbrt_tpu_torch.scene.intersect import intersect_p
 
 CAMERA_DIMS = 5
 BOUNCE_DIMS = 16
@@ -100,6 +102,16 @@ def prepare_one_light(cs, si, lobes, active, u_sel, u_light):
     denom = torch.clamp(ls.pdf * pmf, min=1e-12)
     ld = torch.where(contributes[:, None], f * ls.li * (w_l / denom)[:, None], 0.0)
     return ld, o, sd, dist * (1.0 - 1e-3), contributes
+
+
+def sample_one_light(cs, si, lobes, active, u_sel, u_light):
+    """NEE with its shadow ray traced at once (one any-hit launch) ->
+    ld [N,3], not yet weighted by the path throughput."""
+    if cs.flags.n_lights == 0:
+        return torch.zeros_like(si.p)
+    ld, o, sd, dist, contributes = prepare_one_light(cs, si, lobes, active, u_sel, u_light)
+    occluded = intersect_p(cs.data, cs.flags, o, sd, dist)
+    return torch.where((contributes & ~occluded)[:, None], ld, 0.0)
 
 
 def light_pdf_for_dir(cs, prev_p, wi, si_next, light_idx):

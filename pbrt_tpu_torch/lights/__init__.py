@@ -19,8 +19,10 @@ scene (shapes/quadrics.py tessellate_quadric); its hits are the analytic
 ones. An environment map is looked up in the light's frame (w2l) as an
 equirect image and importance-sampled by a luminance * sin(theta)
 Distribution2D; projection and goniometric maps are resampled to 64x64
-tiles by nearest index, as in the reference. Code for a light kind, an
-environment map or a light map runs only in scenes that hold one.
+tiles by nearest index, as in the reference. sample_le samples an emitted
+ray of every kind (BDPT's light subpaths); projection and goniometric maps
+modulate it as they modulate sample_li's radiance. Code for a light kind,
+an environment map or a light map runs only in scenes that hold one.
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ import torch
 
 from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.math import cross, dot, normalize, vec3, INV_4PI, PI
-from pbrt_tpu_torch.core.sampling import uniform_sample_sphere, uniform_sample_triangle
+from pbrt_tpu_torch.core.sampling import (concentric_sample_disk, cosine_hemisphere_pdf,
+                                          cosine_sample_hemisphere, uniform_cone_pdf,
+                                          uniform_sample_cone, uniform_sample_sphere,
+                                          uniform_sample_triangle)
 from pbrt_tpu_torch.core.spectrum import RGB_TO_Y
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.shapes.quadrics import tessellate_quadric
@@ -54,6 +59,8 @@ class LiSample:
     pdf: torch.Tensor       # [N] solid-angle pdf (1 for delta lights)
     p_light: torch.Tensor   # [N,3] shadow-ray target
     is_delta: torch.Tensor  # [N] bool
+    n_light: torch.Tensor = None   # [N,3] emitter normal at p_light (-wi off area
+                                   # lights); only where asked for
 
 
 def _emitter_triangles(lr, shape_tri_range, tp, shape_quads):
@@ -101,8 +108,8 @@ def compile_lights(lights, shape_tri_range, tp, shape_quads, cwd="."):
         params[8] = -1
         scale = ps.find_one_rgb("scale", [1, 1, 1])
         kid = KIND_IDS.get(lr.kind)
-        if kid is None:
-            raise NotImplementedError(f"light {lr.kind!r} is not ported")
+        if kid is None:   # an unknown kind is skipped, as in the reference
+            continue
         t = Transform(lr.l2w)
         if kid == L_POINT:
             L = ps.find_one_rgb("I", [1, 1, 1]) * scale
@@ -267,9 +274,10 @@ def _map_modulation(lights, kind, pr, li_idx, dir_world):
                        torch.where(((kind == L_GONIO) & has)[:, None], mval, 1.0))
 
 
-def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
+def sample_li(lights, light_idx, ref_p, u2, world_radius, with_normal=False) -> LiSample:
     """Sample an incident direction from per-lane light light_idx [N];
-    only the kinds the table holds are evaluated."""
+    only the kinds the table holds are evaluated. with_normal: also the
+    emitter's normal at the sampled point (BDPT's MIS reads it)."""
     kinds = lights.kinds
     li_idx = torch.clamp(light_idx, min=0)
     kind = lights.kind[li_idx]
@@ -301,15 +309,7 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
     if L_AREA in kinds:
         picks.append((kind == L_AREA, _sample_area(lights, li_idx, ref_p, u2)))
     if L_INFINITE in kinds:
-        # constant: uniform sphere; a map: its Distribution2D
-        wi_c = uniform_sample_sphere(u2)
-        s = LiSample(wi_c, Lv, torch.full((n,), INV_4PI, device=ref_p.device), None, None)
-        if lights.env is not None:
-            wi_m, li_m, pdf_m = _sample_env(lights, li_idx, u2, Lv)
-            has_map = (pr[:, 8] >= 0)
-            s = LiSample(torch.where(has_map[:, None], wi_m, wi_c),
-                         torch.where(has_map[:, None], li_m, Lv),
-                         torch.where(has_map, pdf_m, s.pdf), None, None)
+        s = _sample_infinite(lights, li_idx, pr, u2, Lv)
         s.p_light = ref_p + s.wi * (2.0 * world_radius)
         picks.append((kind == L_INFINITE, s))
     _, out = picks[-1]
@@ -321,8 +321,29 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius) -> LiSample:
     is_delta = (kind == L_POINT) | (kind == L_SPOT) | (kind == L_DISTANT)
     if mapped is not None:
         is_delta = is_delta | mapped
+    n_light = None
+    if with_normal:
+        n_light = -out.wi
+        for sel, s in picks:
+            if s.n_light is not None:
+                n_light = torch.where(sel[:, None], s.n_light, n_light)
     return LiSample(out.wi, out.li, torch.where(light_idx < 0, 0.0, out.pdf), out.p_light,
-                    is_delta)
+                    is_delta, n_light)
+
+
+def _sample_infinite(lights, li_idx, pr, u2, Lv) -> LiSample:
+    """Infinite light: a uniform sphere direction where constant, the
+    environment map's Distribution2D where it has one (no p_light)."""
+    n = u2.shape[0]
+    wi_c = uniform_sample_sphere(u2)
+    s = LiSample(wi_c, Lv, torch.full((n,), INV_4PI, device=u2.device), None, None)
+    if lights.env is not None:
+        wi_m, li_m, pdf_m = _sample_env(lights, li_idx, u2, Lv)
+        has_map = (pr[:, 8] >= 0)
+        s = LiSample(torch.where(has_map[:, None], wi_m, wi_c),
+                     torch.where(has_map[:, None], li_m, Lv),
+                     torch.where(has_map, pdf_m, s.pdf), None, None)
+    return s
 
 
 def _sample_env(lights, li_idx, u2, Lv):
@@ -345,19 +366,18 @@ def _sample_env(lights, li_idx, u2, Lv):
     return wi, env.image.reshape(H * W, 3)[iy * W + ix] * Lv, pdf
 
 
-def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
-    """Diffuse area light: pick a triangle by the area CDF (fixed-step
-    bisection), then a uniform point on it."""
-    n = ref_p.shape[0]
-    pr = lights.params[li_idx]
+def _area_pick(lights, li_idx, pr, u2):
+    """A uniform point on area light li_idx's emitter: a triangle by the
+    area CDF (fixed-step bisection), then a point on it -> (p [N,3],
+    unit geometric normal [N,3], total area [N])."""
+    n = u2.shape[0]
     tri_start = pr[:, 2].to(torch.int64)
     tri_count = torch.clamp(pr[:, 3].to(torch.int64), min=1)
     cdf_off = pr[:, 6].to(torch.int64)
     total_area = torch.clamp(pr[:, 4], min=1e-12)
-    two_sided = pr[:, 5] > 0.5
     C = lights.tri_cdf.shape[0]
     u0 = u2[:, 0]
-    lo = torch.zeros(n, dtype=torch.int64, device=ref_p.device)
+    lo = torch.zeros(n, dtype=torch.int64, device=u2.device)
     hi = tri_count
     for _ in range(max(1, int(np.ceil(np.log2(max(C, 2)))) + 1)):
         mid = (lo + hi) // 2
@@ -374,7 +394,14 @@ def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
     p0, p1, p2 = lights.ltri_p0[tri], lights.ltri_p1[tri], lights.ltri_p2[tri]
     p = b[:, 0:1] * p0 + b[:, 1:2] * p1 + (1.0 - b[:, 0:1] - b[:, 1:2]) * p2
     ng = cross(p1 - p0, p2 - p0)
-    ng = ng / torch.clamp(vm.length(ng), min=1e-12)[:, None]
+    return p, ng / torch.clamp(vm.length(ng), min=1e-12)[:, None], total_area
+
+
+def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
+    """Diffuse area light: a uniform point on the emitter, seen from ref_p."""
+    pr = lights.params[li_idx]
+    two_sided = pr[:, 5] > 0.5
+    p, ng, total_area = _area_pick(lights, li_idx, pr, u2)
     to_ref = ref_p - p
     d2 = torch.clamp(vm.length_squared(to_ref), min=1e-12)
     wi = -to_ref * torch.rsqrt(d2)[:, None]
@@ -382,7 +409,7 @@ def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
     emits = torch.where(two_sided, torch.abs(cos_l) > 1e-7, cos_l > 1e-7)
     pdf = d2 / torch.clamp(torch.abs(cos_l), min=1e-9) / total_area
     li = torch.where(emits[:, None], lights.L[li_idx], 0.0)
-    return LiSample(wi, li, torch.where(emits, pdf, 0.0), p, None)
+    return LiSample(wi, li, torch.where(emits, pdf, 0.0), p, None, ng)
 
 
 def pdf_li(lights, light_idx, hit_t, hit_cos, wi=None):
@@ -440,3 +467,102 @@ def le_area(lights, light_idx, ng, wo):
     two_sided = lights.params[li_idx, 5] > 0.5
     ok = (light_idx >= 0) & (two_sided | (dot(ng, wo) > 0.0))
     return torch.where(ok[:, None], lights.L[li_idx], 0.0)
+
+
+@dataclasses.dataclass
+class LeSample:
+    o: torch.Tensor         # [N,3] ray origin, off the emitter along n_light
+    d: torch.Tensor         # [N,3] ray direction
+    n_light: torch.Tensor   # [N,3] the emitter's normal (the direction off area lights)
+    le: torch.Tensor        # [N,3] emitted radiance
+    pdf_pos: torch.Tensor   # [N] area density of the origin (1 for point lights)
+    pdf_dir: torch.Tensor   # [N] solid-angle density of the direction
+
+
+def _area_point(lights, li_idx, u2):
+    """A uniform point on area light li_idx's emitter -> (p [N,3], unit
+    geometric normal [N,3], area density [N])."""
+    p, ng, total_area = _area_pick(lights, li_idx, lights.params[li_idx], u2)
+    return p, ng, 1.0 / total_area
+
+
+def sample_le(lights, light_idx, u1, u2, world_center, world_radius) -> LeSample:
+    """Sample an emitted ray from per-lane light light_idx [N]; u1, u2
+    [N,2]: the position and direction pairs. Point lights emit over the
+    sphere (spot lights over their cone), mapped ones through their map;
+    a distant light from a disk of the world's radius; an area light from
+    a uniform point of its emitter over the cosine hemisphere (a
+    two-sided one picks its side by u2's first coordinate); an infinite
+    light along its sample_li direction, reversed, from a disk of the
+    world's radius. Only the kinds the table holds are evaluated."""
+    kinds = lights.kinds
+    n = u1.shape[0]
+    dev = u1.device
+    li_idx = torch.clamp(light_idx, min=0)
+    kind = lights.kind[li_idx]
+    Lv = lights.L[li_idx]
+    pr = lights.params[li_idx]
+    center = torch.as_tensor(np.asarray(world_center, np.float32), device=dev)
+    r32 = np.float32(world_radius)
+    pdf_pos_disk = float(np.float32(1.0) / (np.float32(PI) * r32 * r32))
+    cd = concentric_sample_disk(u1) if (L_DISTANT in kinds or L_INFINITE in kinds) else None
+    # candidates (mask, o, d, le, pdf_pos, pdf_dir) in the order point
+    # family, distant, area, infinite; the last one present is the default
+    # of the selection below
+    picks = []
+    area_nl = None
+    if any(k in kinds for k in POINT_FAMILY):
+        d_point = uniform_sample_sphere(u1)
+        pdf_dir = torch.full((n,), INV_4PI, device=dev)
+        le = Lv
+        if L_SPOT in kinds:
+            is_spot = kind == L_SPOT
+            sdir = pr[:, 3:6]
+            cos_total = pr[:, 6]
+            cone = uniform_sample_cone(u1, cos_total)
+            axis = torch.where(is_spot[:, None], sdir,
+                               torch.tensor([0.0, 0.0, 1.0], device=dev))
+            v1, v2 = vm.coordinate_system(normalize(axis))
+            d_spot = cone[:, 0:1] * v1 + cone[:, 1:2] * v2 + cone[:, 2:3] * normalize(sdir)
+            d_point = torch.where(is_spot[:, None], d_spot, d_point)
+            pdf_dir = torch.where(is_spot, uniform_cone_pdf(cos_total), pdf_dir)
+            fall = _spot_falloff(dot(d_point, sdir), pr[:, 6], pr[:, 7])
+            le = torch.where(is_spot[:, None], Lv * fall[:, None], Lv)
+        if lights.limg is not None:
+            le = le * _map_modulation(lights, kind, pr, li_idx, d_point)
+        picks.append((_is(kind, POINT_FAMILY, kinds), pr[:, 0:3], d_point, le, 1.0, pdf_dir))
+    if L_DISTANT in kinds:
+        w_l = pr[:, 3:6]
+        v1, v2 = vm.coordinate_system(normalize(-w_l + 1e-12))
+        p_disk = center + world_radius * (cd[:, 0:1] * v1 + cd[:, 1:2] * v2)
+        picks.append((kind == L_DISTANT, p_disk + w_l * world_radius, -w_l, Lv,
+                      pdf_pos_disk, 1.0))
+    if L_AREA in kinds:
+        area_p, area_ng, area_pdf_pos = _area_point(lights, li_idx, u1)
+        hl = cosine_sample_hemisphere(u2)
+        av1, av2 = vm.coordinate_system(area_ng)
+        d_area = hl[:, 0:1] * av1 + hl[:, 1:2] * av2 + hl[:, 2:3] * area_ng
+        flip = (pr[:, 5] > 0.5) & (u2[:, 0] < 0.5)
+        d_area = torch.where(flip[:, None], -d_area, d_area)
+        area_nl = torch.where(flip[:, None], -area_ng, area_ng)
+        picks.append((kind == L_AREA, area_p, d_area, Lv, area_pdf_pos,
+                      cosine_hemisphere_pdf(torch.abs(hl[:, 2]))))
+    if L_INFINITE in kinds:
+        s = _sample_infinite(lights, li_idx, pr, u2, Lv)
+        d_inf = -s.wi
+        iv1, iv2 = vm.coordinate_system(normalize(d_inf))
+        p_inf = center + world_radius * (-d_inf + cd[:, 0:1] * iv1 + cd[:, 1:2] * iv2)
+        picks.append((kind == L_INFINITE, p_inf, d_inf, s.li, pdf_pos_disk, s.pdf))
+    full = lambda v: v if torch.is_tensor(v) else torch.full((n,), v, device=dev)
+    _, o, d, le, pdf_pos, pdf_dir = picks[-1]
+    pdf_pos, pdf_dir = full(pdf_pos), full(pdf_dir)
+    for sel, o_k, d_k, le_k, pos_k, dir_k in reversed(picks[:-1]):
+        s3 = sel[:, None]
+        o, d, le = torch.where(s3, o_k, o), torch.where(s3, d_k, d), torch.where(s3, le_k, le)
+        pdf_pos = torch.where(sel, pos_k, pdf_pos)
+        pdf_dir = torch.where(sel, dir_k, pdf_dir)
+    n_light = normalize(d)
+    if area_nl is not None:
+        n_light = torch.where((kind == L_AREA)[:, None], area_nl, n_light)
+    return LeSample(o + n_light * 1e-4, d, n_light, le, pdf_pos,
+                    torch.clamp(pdf_dir, min=1e-12))

@@ -1,14 +1,19 @@
-"""Render driver: CompiledScene -> image (port of
-pbrt_tpu/render.py::render_sampler_integrator without checkpoints,
-previews or the stats report), for the path and volpath integrators.
+"""Render driver: CompiledScene -> image (port of pbrt_tpu/render.py
+without checkpoints, previews or the stats report).
 
-All pixels of the film's sample bounds, in Morton order, times k sample
-indices make one wavefront pass of about `wavefront_size` lanes; each
-pass deposits into the film, and the host loops over passes.
+`render` sends a BDPT scene to its own driver (integrators/bdpt.py) and
+every other to render_sampler_integrator, whose radiance function `li_fn`
+picks as the reference's _li_fn does: path, volpath, whitted,
+directlighting with its strategy, and li_path with maxdepth alone for a
+kind it does not name. All pixels of the film's sample bounds, in Morton
+order, times k sample indices make one wavefront pass of about
+`wavefront_size` lanes; each pass deposits into the film, and the host
+loops over passes.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -16,10 +21,11 @@ import torch
 
 from pbrt_tpu_torch.film import FilmState, add_samples, develop
 from pbrt_tpu_torch.filters import build_table
+from pbrt_tpu_torch.integrators.bdpt import render_bdpt
+from pbrt_tpu_torch.integrators.direct import li_direct
 from pbrt_tpu_torch.integrators.path import COUNTERS, li_path
 from pbrt_tpu_torch.integrators.volpath import li_volpath
-
-INTEGRATORS = {"path": li_path, "volpath": li_volpath}
+from pbrt_tpu_torch.integrators.whitted import li_whitted
 
 
 @dataclasses.dataclass
@@ -50,15 +56,40 @@ def sample_pixels(film):
     return xs[order], ys[order]
 
 
+def li_fn(cs):
+    """The scene's radiance function li(cs, px, py, sample_idx) -> (L,
+    p_film, ray_weight, counters), its parameters bound."""
+    kind, p = cs.integrator_kind, cs.integrator_params
+    max_depth = int(p.get("maxdepth", [5])[0])
+    rr = float(p.get("rrthreshold", [1.0])[0])
+    if kind == "path":
+        return functools.partial(li_path, max_depth=max_depth, rr_threshold=rr)
+    if kind == "volpath":
+        return functools.partial(li_volpath, max_depth=max_depth, rr_threshold=rr)
+    if kind == "whitted":
+        return functools.partial(li_whitted, max_depth=max_depth)
+    if kind == "directlighting":
+        return functools.partial(li_direct, max_depth=max_depth,
+                                 strategy=str(p.get("strategy", ["all"])[0]))
+    return functools.partial(li_path, max_depth=max_depth)
+
+
+def render(cs, options: Optional[Options] = None):
+    """-> (image [H,W,3] linear RGB tensor on the scene's device, counters
+    {name: int} summed over all passes, number of passes), by the scene's
+    integrator."""
+    if cs.integrator_kind == "bdpt":
+        return render_bdpt(cs, options)
+    return render_sampler_integrator(cs, options)
+
+
 @torch.no_grad()
 def render_sampler_integrator(cs, options: Optional[Options] = None):
     """-> (image [H,W,3] linear RGB tensor on the scene's device,
     counters {name: int} summed over all passes, number of passes). An
     ordinary render records no autograd tape (diff/ records one)."""
     options = options or Options()
-    if cs.integrator_kind not in INTEGRATORS:
-        raise NotImplementedError(f"integrator {cs.integrator_kind!r} is not ported")
-    li = INTEGRATORS[cs.integrator_kind]
+    li = li_fn(cs)
     dev = cs.device
     px_np, py_np = sample_pixels(cs.film)
     n_pix = px_np.shape[0]
@@ -67,8 +98,6 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
     spp = cs.sampler.rounded_spp()
     if options.quick:
         spp = max(1, spp // 4)
-    max_depth = int(cs.integrator_params.get("maxdepth", [5])[0])
-    rr = float(cs.integrator_params.get("rrthreshold", [1.0])[0])
     k = max(1, min(spp, options.wavefront_size // max(n_pix, 1)))
     table = torch.as_tensor(build_table(cs.film.filter), device=dev)
 
@@ -80,7 +109,7 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
         pxs = px.repeat(kk)
         pys = py.repeat(kk)
         sidx = (s + torch.arange(kk, device=dev).repeat_interleave(n_pix)).to(torch.int32)
-        L, p_film, ray_w, cnt = li(cs, pxs, pys, sidx, max_depth=max_depth, rr_threshold=rr)
+        L, p_film, ray_w, cnt = li(cs, pxs, pys, sidx)
         film = add_samples(cs.film, film, p_film, L, ray_w, table)
         for c in COUNTERS:
             totals[c] += cnt[c]
@@ -95,7 +124,7 @@ def render_file(path: str, options: Optional[Options] = None, device="cuda"):
     from pbrt_tpu_torch.scene.build import load_scene
     options = options or Options()
     cs = load_scene(path, options, device=device, seed=options.seed)
-    img, _, _ = render_sampler_integrator(cs, options)
+    img, _, _ = render(cs, options)
     out = options.outfile or cs.film.filename
     write_image(out, img.cpu().numpy())
     return out, img

@@ -6,9 +6,11 @@ transform, as in the reference. Textures are named per graphics state,
 float and spectrum apart; a texture, a material or a mesh's alpha mask
 that names one holds its id. Named media and the medium interface of
 the graphics state are recorded on the camera, every shape and every
-light, by name, as the reference records them. Directives the port does
-not cover yet (TransformTimes other than 0 1) raise NotImplementedError
-naming what they met. The shapes are those of shapes/factory.py."""
+light, by name, as the reference records them. As in the reference,
+TransformTimes is stored and never read, an Option does nothing, a Film
+of any kind is the image film, and any accelerator but the kd-tree
+(which raises NotImplementedError) builds the BVH. The shapes are those
+of shapes/factory.py."""
 from __future__ import annotations
 
 import copy
@@ -144,6 +146,7 @@ class Api:
         self.attr_stack: List[Tuple[GraphicsState, TransformSet]] = []
         self.xform_stack: List[TransformSet] = []
         self.cwd = "."
+        self.transform_times_read = (0.0, 1.0)   # stored, never read (the reference's)
         self.current_object: Optional[str] = None
         self.objects: Dict[str, List[ShapeRecord]] = {}
         self.proto_ids: Dict[str, int] = {}
@@ -192,8 +195,7 @@ class Api:
                        "EndTime": END_BIT}.get(which, ALL_BITS)
 
     def transform_times(self, t0, t1):
-        if (t0, t1) != (0.0, 1.0):
-            raise NotImplementedError("TransformTimes other than 0 1 is not ported")
+        self.transform_times_read = (t0, t1)
 
     def transform_begin(self):
         self.xform_stack.append(self.ctm.clone())
@@ -223,8 +225,6 @@ class Api:
         self.scene.sampler_params = ps
 
     def film(self, kind, ps):
-        if kind != "image":
-            raise NotImplementedError(f"film {kind!r} is not ported")
         self.scene.film_params = ps
 
     def pixel_filter(self, kind, ps):
@@ -236,13 +236,13 @@ class Api:
         self.scene.integrator_params = ps
 
     def accelerator(self, kind, ps):
-        if kind != "bvh":
+        if kind == "kdtree":
             raise NotImplementedError(f"accelerator {kind!r} is not ported")
         self.scene.accelerator_kind = kind
         self.scene.accelerator_params = ps
 
     def option(self, name, ps):
-        raise NotImplementedError(f"Option {name!r} is not ported")
+        pass
 
     # -- world -----------------------------------------------------------
     def world_begin(self):

@@ -528,15 +528,19 @@ def write_sky_exr(path, size=(512, 256), seed=0):
     write_exr(path, img.astype(np.float32))
 
 
-def write_env_material_scene(dirname, large=True, res=None, spp=16):
+def write_env_material_scene(dirname, large=True, res=None, spp=16, integrator=None):
     """Write BASELINE config 3 (scene.pbrt, knot.ply, sky.exr) into dirname
-    -> the scene file's path; res defaults to 256 (large) or 64."""
+    -> the scene file's path; res defaults to 256 (large) or 64;
+    integrator: another Integrator line than path at depth 5."""
     write_sky_exr(os.path.join(dirname, "sky.exr"))
     write_knot_ply(os.path.join(dirname, "knot.ply"), *KNOT[large])
     path = os.path.join(dirname, "scene.pbrt")
+    text = ENV_SCENE.replace("{RES}", str(res or (256 if large else 64))).replace(
+        "{SPP}", str(spp))
+    if integrator:
+        text = text.replace('Integrator "path" "integer maxdepth" 5', integrator)
     with open(path, "w") as f:
-        f.write(ENV_SCENE.replace("{RES}", str(res or (256 if large else 64)))
-                .replace("{SPP}", str(spp)))
+        f.write(text)
     return path
 
 
@@ -772,3 +776,124 @@ def write_volpath_scene(dirname, large=True, res=None, spp=4, grid=True, knot=No
     of another knot."""
     return _knot_scene_file(dirname, volpath_scene_text(large, res, spp, grid),
                             knot or KNOT[large])
+
+
+def write_bdpt_scene(dirname, large=True, res=None, spp=4):
+    """Write the bench scene (its knot read from knot.ply) under
+    Integrator "bdpt" at depth 4 into dirname -> the scene file's path;
+    res defaults to 256 (large) or 64."""
+    text = ply_scene_text('Shape "plymesh" "string filename" "knot.ply"').replace(
+        'Integrator "path"', 'Integrator "bdpt"').replace(
+        'Sampler "02sequence" "integer pixelsamples" 4',
+        f'Sampler "02sequence" "integer pixelsamples" {spp}').replace(
+        "[256]", f"[{res or (256 if large else 64)}]")
+    return _knot_scene_file(dirname, text, KNOT[large])
+
+
+# The calibration scenes of the reference's integrator tests
+# (tests/test_integrators.py): a matte sphere on a floor under a point
+# light ("point"), the same under a constant infinite light ("env") or in
+# a homogeneous fog ("fog"), and a point light inside an absorbing sphere
+# of null material ("murk"); and a 36-triangle knot, a glass sphere and a
+# floor under a quad area light and a dim infinite light ("knot").
+_CAL_HEAD = """LookAt 0 2 6  0 1 0  0 1 0
+Camera "perspective" "float fov" 40
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Sampler "02sequence" "integer pixelsamples" {spp}
+{integrator}
+"""
+_CAL_SPHERE_FLOOR = """AttributeBegin
+  Material "matte" "rgb Kd" [0.6 0.4 0.3]
+  Translate 0 1 0
+  Shape "sphere" "float radius" 1
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.5 0.5 0.5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-10 0 -10  10 0 -10  10 0 10  -10 0 10]
+AttributeEnd
+"""
+_CAL_MURK = """LookAt 0 0 6  0 0 0  0 1 0
+Camera "perspective" "float fov" 40
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Sampler "02sequence" "integer pixelsamples" {spp}
+{integrator}
+WorldBegin
+MakeNamedMedium "murk" "string type" "homogeneous"
+  "rgb sigma_a" [0.8 0.8 0.8] "rgb sigma_s" [0 0 0]
+AttributeBegin
+  MediumInterface "" "murk"
+  LightSource "point" "point from" [0 0 0] "rgb I" [30 30 30]
+AttributeEnd
+AttributeBegin
+  Material ""
+  MediumInterface "murk" ""
+  Shape "sphere" "float radius" 1
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.6 0.6 0.6]
+  Translate 0 -2.2 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-8 0 -8  8 0 -8  8 0 8  -8 0 8]
+AttributeEnd
+WorldEnd
+"""
+_CAL_KNOT = """LookAt 3 3 3  0 0 0  0 1 0
+Camera "perspective" "float fov" 40
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Sampler "02sequence" "integer pixelsamples" {spp}
+{integrator}
+WorldBegin
+LightSource "infinite" "rgb L" [0.1 0.12 0.15]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [8 8 8]
+  Translate 0 4 0
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1]
+AttributeEnd
+AttributeBegin
+  Material "plastic" "rgb Kd" [0.3 0.3 0.7] "rgb Ks" [0.3 0.3 0.3]
+{knot}AttributeEnd
+AttributeBegin
+  Material "glass"
+  Translate 1.2 -0.5 1.2
+  Shape "sphere" "float radius" 0.5
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [0.5 0.5 0.5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-10 -1 -10  10 -1 -10  10 -1 10  -10 -1 10]
+AttributeEnd
+WorldEnd
+"""
+CALIBRATION_SPP = {"point": 16, "env": 16, "fog": 32, "murk": 32, "knot": 16}
+CALIBRATION_RES = {"point": 20, "env": 16, "fog": 16, "murk": 16, "knot": 16}
+
+
+def _inline_knot(n_u=6, n_v=3):
+    """The bench knot at (n_u, n_v) segments as an inline trianglemesh."""
+    m = make_knot_mesh(n_u, n_v, scale=0.45)
+    pts = " ".join("%.9g" % x for x in m.p.reshape(-1))
+    idx = " ".join(str(int(i)) for i in m.indices.reshape(-1))
+    return f'  Shape "trianglemesh" "integer indices" [{idx}]\n    "point P" [{pts}]\n'
+
+
+def calibration_scene(name, integrator, res=None, spp=None) -> str:
+    """A calibration scene's text (see above) under the Integrator line
+    `integrator`; res and spp default to the reference tests' own."""
+    res = res or CALIBRATION_RES[name]
+    spp = spp or CALIBRATION_SPP[name]
+    kw = dict(res=res, spp=spp, integrator=integrator)
+    if name == "murk":
+        return _CAL_MURK.format(**kw)
+    if name == "knot":
+        return _CAL_KNOT.format(knot=_inline_knot(), **kw)
+    light = {"point": 'LightSource "point" "point from" [0 4 2] "rgb I" [40 40 40]\n',
+             "fog": 'LightSource "point" "point from" [0 4 2] "rgb I" [40 40 40]\n',
+             "env": 'LightSource "infinite" "rgb L" [0.6 0.7 0.8]\n'}[name]
+    text = _CAL_HEAD.format(**kw) + "WorldBegin\n" + light + _CAL_SPHERE_FLOOR + "WorldEnd\n"
+    if name == "fog":
+        text = ('MakeNamedMedium "fog" "string type" "homogeneous"\n'
+                '  "rgb sigma_a" [0.02 0.02 0.02] "rgb sigma_s" [0.10 0.10 0.10]\n'
+                '  "float g" 0.0\nMediumInterface "fog" "fog"\n') + text
+    return text

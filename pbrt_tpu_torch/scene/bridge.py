@@ -164,7 +164,8 @@ def from_jax_arrays(arrays: dict, specs: dict, device="cuda"):
     filename, scale, max_sample_luminance}, "filter": FilterSpec fields,
     "sampler": SamplerSpec fields, "integrator_kind", "integrator_params"};
     the camera's lens_radius and focal_distance may be left out (no
-    lens)."""
+    lens), and so may camera_to_raster and screen_area, which only BDPT
+    reads."""
     s = dict(specs["sampler"], resolution=tuple(specs["sampler"]["resolution"]))
     camera = CameraSpec(**{"kind": "perspective", **specs["camera"]})
     film = FilmSpec(filter=FilterSpec(**specs["filter"]), **specs["film"])

@@ -39,8 +39,8 @@ from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
 from pbrt_tpu_torch.textures import KIND_IDS as TEX_KIND_IDS, T_CHECKER3D, TextureTable
 from pbrt_tpu_torch.textures.image import build_atlas, load_image
 
-_PORTED_INTEGRATOR_PARAMS = {"maxdepth", "rrthreshold", "lightsamplestrategy",
-                             "spatialvoxels"}
+# integrators with a driver of their own in the reference that the port lacks
+_UNPORTED_INTEGRATORS = ("sppm", "mlt")
 ENV_KEYS = ("env_func", "env_cond_cdf", "env_cond_int", "env_marg_cdf", "env_marg_int")
 _MAPPINGS = {"uv": 0, "spherical": 1, "cylindrical": 2, "planar": 3}
 
@@ -291,6 +291,16 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
     return out
 
 
+def _param_bool(v):
+    """A ParamSet bool as the reference reads it: [True], ["true"] or a
+    bool."""
+    if isinstance(v, (list, tuple)):
+        v = v[0] if v else False
+    if isinstance(v, str):
+        return v.strip().lower() == "true"
+    return bool(v)
+
+
 def reachable_kinds(kind, child, ids):
     """Texture kind ids of textures ids and every texture they nest."""
     seen, todo = set(), [int(i) for i in ids]
@@ -305,11 +315,13 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                       integrator_params, device) -> CompiledScene:
     """Host tables + specs -> CompiledScene with its tensors on `device`."""
     dev = torch.device(device)
-    if integrator_kind not in ("path", "volpath"):
+    if integrator_kind in _UNPORTED_INTEGRATORS:
         raise NotImplementedError(f"integrator {integrator_kind!r} is not ported")
-    for k in integrator_params:
-        if k not in _PORTED_INTEGRATOR_PARAMS:
-            raise NotImplementedError(f"integrator parameter {k!r} is not ported")
+    # other integrator parameters are ignored, as in the reference; it
+    # renders spectrally where "spectral" is true and no fourier table is
+    # present (the port raises there until its spectral mode lands)
+    if _param_bool(integrator_params.get("spectral", False)) and not t["n_fourier"]:
+        raise NotImplementedError("integrator parameter 'spectral' true is not ported")
     # the reference takes any other strategy name for "power"
     strategy = str(integrator_params.get("lightsamplestrategy", ["power"])[0])
     ten = lambda a: torch.as_tensor(np.array(a), device=dev)

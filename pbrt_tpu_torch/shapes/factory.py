@@ -15,8 +15,8 @@ QUADRIC_KINDS = frozenset(Q.KIND_NAMES)
 
 def make_shapes(kind: str, ps, o2w, cwd: str = "."):
     """The records of one Shape directive under object-to-world o2w; a PLY
-    file that is missing is logged and gives none. Alpha masks on a
-    loopsubdiv surface raise NotImplementedError."""
+    file that is missing is logged and gives none. A loopsubdiv surface
+    ignores alpha masks, as the reference does."""
     from pbrt_tpu_torch.scene.api import ShapeRecord
     from pbrt_tpu_torch.shapes.triangle import TriangleMeshData, mesh_from_params
     if kind in QUADRIC_KINDS:
@@ -30,9 +30,6 @@ def make_shapes(kind: str, ps, o2w, cwd: str = "."):
         return [ShapeRecord("trianglemesh", mesh=mesh_from_params(ps, o2w))]
     if kind not in ("plymesh", "loopsubdiv"):
         raise ValueError(f"unknown shape kind {kind!r}")
-    for name in ("alpha", "shadowalpha"):
-        if kind == "loopsubdiv" and name in ps:
-            raise NotImplementedError(f"{kind} parameter {name!r} is not ported")
     if kind == "plymesh":
         from pbrt_tpu_torch.shapes.ply import read_ply
         fname = ps.find_one_string("filename", "")

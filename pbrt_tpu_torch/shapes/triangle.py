@@ -26,9 +26,8 @@ class TriangleMeshData:
 
 def mesh_from_params(ps, object_to_world) -> TriangleMeshData:
     """From a 'trianglemesh' ParamSet (its alpha masks are resolved by
-    scene/api.py). Tangents raise."""
-    if "S" in ps:
-        raise NotImplementedError("trianglemesh parameter 'S' is not ported")
+    scene/api.py). Tangents ("vector S") are read and not used, as in the
+    reference."""
     params = ps.as_plain_dict()
     indices = np.asarray(params["indices"], np.int32).reshape(-1, 3)
     p = object_to_world.point(np.asarray(params["P"], np.float32).reshape(-1, 3))

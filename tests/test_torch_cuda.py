@@ -495,6 +495,36 @@ def test_new_scene_crops_on_the_card_match_the_cpu(scene, tmp_path):
         assert _crop_close(*out) >= 0.99
 
 
+@pytest.mark.parametrize("integrator", ["whitted", "direct_all", "direct_one", "bdpt"])
+def test_new_integrator_crops_on_the_card_match_the_cpu(integrator, tmp_path):
+    """The small config 3 (64x64, 4 spp, depth 5) under whitted and
+    directlighting (B1 11 launches a pass: 6 intersections and one shadow
+    ray a bounce) and the small bench scene under bdpt (64x64, 4 spp,
+    depth 4; B1 28 a pass), through the render dispatcher: the centre 32x32
+    crop finite, nonzero and within rtol 1e-3 / atol 1e-4 of the CPU's on
+    >= 99% of its pixels, the means within 1%."""
+    needs_cuda()
+    from pbrt_tpu_torch.render import render
+    from pbrt_tpu_torch.scene.bench import write_bdpt_scene, write_env_material_scene
+    from pbrt_tpu_torch.scene.build import load_scene
+    lines = {"whitted": 'Integrator "whitted" "integer maxdepth" 5',
+             "direct_all": 'Integrator "directlighting" "integer maxdepth" 5',
+             "direct_one": 'Integrator "directlighting" "integer maxdepth" 5 '
+                           '"string strategy" "one"'}
+    path = (write_bdpt_scene(str(tmp_path), large=False) if integrator == "bdpt" else
+            write_env_material_scene(str(tmp_path), large=False, spp=4,
+                                     integrator=lines[integrator]))
+    opts = Options(crop_window=(0.25, 0.75, 0.25, 0.75))
+    before = T.traverse.launches
+    img, _, passes = render(load_scene(path, opts, "cuda"), opts)
+    torch.cuda.synchronize()
+    assert T.traverse.launches - before == (28 if integrator == "bdpt" else 11) * passes
+    assert torch.isfinite(img).all() and float(img.sum()) > 0
+    cpu, _, _ = render(load_scene(path, opts, "cpu"), opts)
+    assert _crop_close(img, cpu) >= 0.99
+    assert abs(float(img.mean()) - float(cpu.mean())) <= 0.01 * float(cpu.mean())
+
+
 # device kernels of one full render under torch.profiler before the new
 # material, light and strategy stages (PERF.md section 5's ranges over
 # earlier chip runs); the sphere scene, matte only, now skips the glossy

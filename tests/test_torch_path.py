@@ -358,11 +358,13 @@ def test_png_round_trip(tmp_path):
      "material 'subsurface'"),
     ('Material "kdsubsurface"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
      "material 'kdsubsurface'"),
-    ('Shape "loopsubdiv" "integer levels" 1 "integer indices" [0 1 2] '
-     '"point P" [0 0 0 1 0 0 0 1 0] "float alpha" 0.5', "loopsubdiv parameter 'alpha'"),
-    ('TransformTimes 0 2', "TransformTimes other than 0 1"),
-    ('Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0] '
-     '"vector S" [1 0 0 1 0 0 1 0 0]', "trianglemesh parameter 'S'"),
+    ('Material "subsurface" "string name" "Skin1" "float scale" 2\nShape "trianglemesh" '
+     '"integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]', "material 'subsurface'"),
+    ('MakeNamedMaterial "skin" "string type" "subsurface" "float eta" 1.4\n'
+     'NamedMaterial "skin"\nShape "trianglemesh" "integer indices" [0 1 2] '
+     '"point P" [0 0 0 1 0 0 0 1 0]', "material 'subsurface'"),
+    ('Material "kdsubsurface" "rgb Kd" [0.6 0.4 0.3] "float eta" 1.33\nShape "trianglemesh" '
+     '"integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]', "material 'kdsubsurface'"),
 ])
 def test_unported_directives_raise(directive, what):
     text = SMOKE.replace("{OUT}", "x.png").replace("WorldEnd", directive + "\nWorldEnd")
@@ -373,7 +375,7 @@ def test_unported_directives_raise(directive, what):
 @pytest.mark.parametrize("line,what", [
     ('Camera "environment"', "camera 'environment'"),
     ('Integrator "sppm"', "integrator 'sppm'"),
-    ('Integrator "bdpt"', "integrator 'bdpt'"),
+    ('Integrator "mlt"', "integrator 'mlt'"),
     ('Camera "realistic"', "camera 'realistic'"),
     ('Accelerator "kdtree"', "accelerator 'kdtree'"),
 ])

@@ -2,17 +2,18 @@
 pbrt_tpu: the medium tables, the Henyey-Greenstein phase function, medium
 sampling and transmittance (homogeneous and grid), the shadow rays'
 transmittance walk across a null shell, and li_volpath on a homogeneous
-and a grid scene."""
+and a grid scene (the last two against the reference's outputs committed
+in tests/torch_refs)."""
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import front_end_tables, hold_li, jax_scene_file
+from torch_port_helpers import front_end_tables, hold_ref, jax_scene_file
+from torch_refs.cases import VOLPATH_KNOT, load as load_ref, tr_inputs
 
 from pbrt_tpu import media as JMD
-from pbrt_tpu.integrators.volpath import intersect_tr as j_intersect_tr, li_volpath as j_li_volpath
 from pbrt_tpu.samplers.hashing import hash3 as j_hash3
 from pbrt_tpu_torch import media as MD
 from pbrt_tpu_torch.integrators.volpath import intersect_tr, li_volpath
@@ -25,7 +26,7 @@ N = 1024   # the lanes of every test here, so that the reference compiles each o
 # a knot of 36 triangles: the scenes' 52 triangles stay under the
 # reference's brute-force bound (MIN_BVH_TRIS, 64), so its intersect
 # compiles no BVH loop per call (the port walks its BVH as ever)
-TINY_KNOT = (6, 3)
+TINY_KNOT = VOLPATH_KNOT
 
 
 @pytest.fixture(scope="module", params=["homogeneous", "grid"])
@@ -122,34 +123,37 @@ def test_sample_medium_and_transmittance_match_reference(scene):
     assert (tr < 0.99).mean() > 0.3
 
 
-def test_intersect_tr_across_null_shell(scene):
+def test_intersect_tr_across_null_shell(scene, request):
     """Shadow rays from inside the knot's box (or the fog) toward the area
     light cross the box's null faces (a swap to the fog) and hit the knot
-    or the floor: occlusion equal, transmittance within 1e-5 relative."""
-    jcs, path = scene
+    or the floor: occlusion equal, transmittance within 1e-5 relative of
+    the reference's outputs committed in tests/torch_refs (made by its
+    make_refs.py from the same scene file and rays)."""
+    _, path = scene
+    ref = load_ref(f"intersect_tr_{request.node.callspec.params['scene']}")
+    assert open(path).read() == ref["scene"]
     cs = load_scene(path, device="cpu")
-    rng = np.random.default_rng(3)
-    lo, hi = np.asarray(SMOKE_BOX[0]), np.asarray(SMOKE_BOX[1])
-    o = rng.uniform(lo + 0.05, hi - 0.05, (N, 3)).astype(np.float32)
-    target = np.concatenate([rng.uniform(-0.9, 0.9, (N, 1)), np.full((N, 1), 3.999),
-                             rng.uniform(-0.9, 0.9, (N, 1))], 1).astype(np.float32)
-    to_l = target - o
-    dist = np.linalg.norm(to_l, axis=1).astype(np.float32)
-    d = (to_l / dist[:, None]).astype(np.float32)
-    mid = np.full(N, 1 if cs.flags.any_grid_media else 0, np.int32)
-    pix = [rng.integers(0, 64, N).astype(np.uint32) for _ in range(3)]
-    (to, td, tdist, tm, *tpix), (jo, jd, jdist, jm, *jpix) = _both(o, d, dist, mid, *pix)
-    tr, occ = intersect_tr(cs.data, cs.flags, tm, to, td, tdist, 0xA100, hash3(*tpix))
-    jtr, jocc = j_intersect_tr(jcs.data, jcs.flags, jm, jo, jd, jdist, 0xA100, tuple(jpix))
-    assert np.array_equal(occ.numpy(), np.asarray(jocc))
+    o, d, dist, mid, pix = tr_inputs(cs.flags.any_grid_media)
+    for k, v in (("o", o), ("d", d), ("dist", dist), ("mid", mid), ("pix", np.stack(pix))):
+        np.testing.assert_array_equal(v, ref[k])
+    tpix = [torch.as_tensor(p.astype(np.int64)) for p in pix]
+    tr, occ = intersect_tr(cs.data, cs.flags, *(torch.as_tensor(a) for a in (mid, o, d, dist)),
+                           0xA100, hash3(*tpix))
+    assert np.array_equal(occ.numpy(), ref["occ"])
     assert 0.05 < occ.numpy().mean() < 0.95
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jtr), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(tr.numpy(), ref["tr"], rtol=1e-5, atol=1e-7)
     assert (tr.numpy()[~occ.numpy()] < 0.999).all()
 
 
-def test_li_volpath_matches_reference(scene):
+def test_li_volpath_matches_reference(scene, request):
     """li_volpath, 1,024 lanes at depth 3, with the criterion of
-    tests/test_torch_path.py."""
-    jcs, path = scene
-    assert hold_li(j_li_volpath, li_volpath, jcs, load_scene(path, device="cpu"), 1024, 64, 4, 3,
-                   seed=4) > 0.05
+    tests/test_torch_path.py, against the reference's outputs committed in
+    tests/torch_refs (made by its make_refs.py from the same scene file,
+    lanes and seed)."""
+    _, path = scene
+    ref = load_ref(f"volpath_{request.node.callspec.params['scene']}")
+    assert open(path).read() == ref["scene"]
+    L, p_film, _, cnt = li_volpath(load_scene(path, device="cpu"),
+                                   *(torch.as_tensor(ref[k]) for k in ("px", "py", "s")),
+                                   max_depth=3)
+    assert hold_ref(L, p_film, cnt, ref) > 0.05
