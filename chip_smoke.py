@@ -122,11 +122,13 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      before a mirror, a lens focused on the knot, the global Sobol'
      sampler, 256x256, depth 5): one timed render at the full 256 spp (128
      passes), finite and nonzero with B1 6 launches a pass; the profiled
-     render and the crops at 16 spp, with the same checks but for the
-     crop's bound: 95% of its pixels close to the CPU's, since a pixel
-     averages 16 paths and through the glass knot the card's rounding
-     moves a path now and then; the crop's 16,384 lanes (li_path on the
-     card against the CPU) are held to the repo's 99%;
+     render and the crops at 16 spp, with the same checks (the crop held
+     to 99%: the card takes its reciprocal square roots as 1 / sqrt,
+     core/math.py rsqrt, since its rsqrt moved paths through the glass
+     knot's specular chains); and the first
+     bounce's stages on the crop's 16,384 lanes, each fed the CPU's
+     inputs, print the share of lanes bit-equal to the CPU's
+     (config4_stages);
   20. the volpath scene (write_volpath_scene: the large bench scene in a
      homogeneous fog with the knot in a box of grid medium, volpath at
      depth 5, 4 spp): the checks of phase 18 with B1 26 launches a pass (6
@@ -150,9 +152,29 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      calibration scene (scene/bench.py calibration_scene, the reference's
      tests/test_integrators.py scene) at 256x256 and 4 spp, BDPT's mean
      within 5% of path's, and the fog scene, BDPT's mean within 8% of
-     volpath's (depth 3; the reference tests' bounds).
+     volpath's (depth 3; the reference tests' bounds);
+  24. the large bench scene (its knot read from a PLY file) under
+     Integrator "mlt" at depth 4, 256x256: 65,536 bootstrap samples in 4
+     chunks, 65,536 chains, 8 mutations a pixel (8 steps), 13 target
+     evaluations of B1 28 launches each: render_file once, then one timed
+     render, bitwise equal to render_file's, and one profiled render;
+     _eval_bdpt_target on 16,384 seeded lanes against the CPU's (>= 99%
+     within rtol 1e-3 / atol 1e-4) with its tensor ops, and a step's;
+     the timed render under "string target" "path" (B1 5 an evaluation);
+  25. the same scene under Integrator "sppm", depth 5, 16 iterations of
+     65,536 photons at SPPM_RADIUS (zero grid overflows): render_file,
+     the timed render (B1 15 launches an iteration, bitwise equal to
+     render_file's) and the profiled one, an iteration's tensor ops, and
+     one iteration on a 32x32 crop's lanes (16,384 photons at radius 0.3)
+     against the CPU's: visible points, ld, phi and the deposit counts
+     on >= 99% of lanes, the overflow count equal;
+  26. the reference tests' point scene at their own settings (20x20):
+     MLT (depth 3, 400 mutations a pixel) within 5% of path's mean and
+     SPPM (64 iterations, radius 0.25, depth 3) within 10%, with zero
+     overflows.
 Every profile records the device's activity only (kernels, copies and
-sets); its top ops are the kernels' ops by name (`kernel_op`).
+sets), read from the profiler's raw records; its top ops are the kernels'
+ops by name (`kernel_op`).
 The line before the last is the kernels' JSON record, with each kernel's
 bound: the larger of its fp32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s (H100 SXM), counted from the plain walk's visits on the timed
@@ -169,6 +191,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pbrt_tpu_torch.accel import instance as I
 from pbrt_tpu_torch.accel import native
@@ -178,6 +201,10 @@ from pbrt_tpu_torch.integrators.common import camera_rays
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.integrators.volpath import TR_SEGMENTS
 from pbrt_tpu_torch.integrators import bdpt as BD
+from pbrt_tpu_torch.integrators import mlt as ML
+from pbrt_tpu_torch.integrators import sppm as SP
+from pbrt_tpu_torch.core.spectrum import luminance
+from pbrt_tpu_torch.film import FilmState
 from pbrt_tpu_torch.render import Options, render, render_file, render_sampler_integrator, \
     sample_pixels
 from pbrt_tpu_torch.samplers import SamplerSpec, sample_2d, sample_dim
@@ -188,7 +215,7 @@ from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
                                         write_all_kinds_scene, write_bdpt_scene,
                                         write_config2_scene, write_config4_scene,
                                         write_env_material_scene, write_floor_image,
-                                        write_volpath_scene)
+                                        write_mlt_scene, write_sppm_scene, write_volpath_scene)
 from pbrt_tpu_torch.scene.build import load_scene
 from pbrt_tpu_torch.scene.intersect import _quadric_pass, kernel_bary
 
@@ -216,6 +243,9 @@ SAMPLER_KINDS = [("random", {}), ("stratified", dict(xsamples=4, ysamples=4)),
                  ("stratified", dict(xsamples=3, ysamples=5, jitter=False)), ("halton", {}),
                  ("sobol", {}), ("sobol", dict(owen=True)), ("02sequence", {}),
                  ("maxmindist", {})]
+# SPPM's initial radius in phase 25: the bench scene's 16 iterations at 256x256 report no
+# grid overflow at it (found on the card, PERF.md section 4)
+SPPM_RADIUS = 0.015
 PORT_KERNELS = ("walk_kernel", "traverse_kernel", "packet_kernel", "traverse4_kernel",
                 "instance_kernel")
 
@@ -252,6 +282,24 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the non-view tensor ops issued under it (each a device kernel
+    on the card)."""
+    n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        OpCount.n += not func.is_view
+        return func(*args, **(kwargs or {}))
+
+
+def ops_of(fn):
+    """-> (fn's result, the tensor ops it issued)."""
+    OpCount.n = 0
+    with torch.no_grad(), OpCount():
+        out = fn()
+    return out, OpCount.n
 
 
 def random_rays(n, dev, seed):
@@ -482,24 +530,29 @@ def profile_render(cs, opts):
     host's op events would cost 2.5x the post-processing time for the same
     kernels) -> (device ms, device kernel count, the 5 kernel ops
     (`kernel_op`) with the most device time, {port kernel (`kernel_of`):
-    its device ms in the render})."""
+    its device ms in the render}). The device events are read from the
+    profiler's raw kineto records: building its FunctionEvent list costs
+    about 0.3 ms an event on the card's host."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         render(cs, opts)
         torch.cuda.synchronize()
+    return device_summary(prof)
+
+
+def device_summary(prof):
+    """A finished profile's device events -> profile_render's tuple."""
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events() if e.device_type == cuda]
-    busy = sum(e.device_time_total for e in kernels) / 1e3
+    kernels = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda]
     by_op, mine = {}, dict.fromkeys(REPLACES, 0.0)
-    for e in prof.key_averages():
-        if e.device_type != cuda:
-            continue
-        op = kernel_op(e.key)
-        by_op[op] = by_op.get(op, 0.0) + e.self_device_time_total / 1e3
-        if kernel_of(e.key):
-            mine[kernel_of(e.key)] += e.self_device_time_total / 1e3
+    for name, ms in kernels:
+        op = kernel_op(name)
+        by_op[op] = by_op.get(op, 0.0) + ms
+        if kernel_of(name):
+            mine[kernel_of(name)] += ms
     top = ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:5])
-    return busy, len(kernels), top, mine
+    return sum(ms for _, ms in kernels), len(kernels), top, mine
 
 
 def render_instanced(animated, dev, card):
@@ -557,7 +610,8 @@ def check_render(img, launches, want, label, res=256):
 
 
 def close_share(a, c):
-    """Share of pixels of a within rtol 1e-3 / atol 1e-4 of c."""
+    """Share of the pixels or lanes of a (the last axis holds a row) within
+    rtol 1e-3 / atol 1e-4 of c."""
     a, c = a.cpu().numpy(), c.cpu().numpy()
     return float(np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), axis=-1).mean())
 
@@ -743,32 +797,86 @@ def textured_render(dev, card, large=True):
         check_crop(a, b, c, "textured")
 
 
-def lane_share(path, copt, dev):
-    """li_path of every lane of a crop (each pixel at each sample index) on
-    the card and on the CPU -> (share of lanes within rtol 1e-3 / atol
-    1e-4, lanes): the repo's criterion for an integrator, where a crop
-    pixel averages all of a pixel's lanes."""
-    out = []
-    for d in (dev, "cpu"):
-        cs = load_scene(path, copt, d)
-        px, py = (torch.as_tensor(a, device=d) for a in sample_pixels(cs.film))
-        spp = cs.sampler.rounded_spp()
-        sidx = torch.arange(spp, device=d, dtype=torch.int32).repeat_interleave(px.shape[0])
-        depth = int(cs.integrator_params.get("maxdepth", [5])[0])
-        out.append(li_path(cs, px.repeat(spp), py.repeat(spp), sidx, max_depth=depth)[0])
-    return close_share(*out), out[1].shape[0]
+def config4_stages(path, copt, dev):
+    """Phase 19: config 4's crop lanes (each pixel at each sample index)
+    through the first bounce of li_path's stages on the card and on the
+    CPU, each stage fed the CPU's inputs -> prints, for each stage's
+    outputs, the share of lanes bit-equal to the CPU's and the largest
+    difference."""
+    import dataclasses
+    from pbrt_tpu_torch.core.math import normalize
+    from pbrt_tpu_torch.integrators.common import prepare_one_light
+    from pbrt_tpu_torch.materials import bsdf as MB
+    from pbrt_tpu_torch.materials import compute_lobes
+    from pbrt_tpu_torch.scene.intersect import intersect
+    cg, cc = load_scene(path, copt, dev), load_scene(path, copt, "cpu")
+    px, py = (torch.as_tensor(a) for a in sample_pixels(cc.film))
+    spp = cc.sampler.rounded_spp()
+    sidx = torch.arange(spp, dtype=torch.int32).repeat_interleave(px.shape[0])
+    lanes = (px.repeat(spp), py.repeat(spp), sidx)
+    lanes_g = [t.to(dev) for t in lanes]
+    to = lambda x: x.to(dev) if torch.is_tensor(x) else x
+    moved = lambda obj: dataclasses.replace(obj, **{f.name: to(getattr(obj, f.name))
+                                                    for f in dataclasses.fields(obj)})
+    rows = []
+
+    def cmp(name, g, c):
+        g = g.cpu().reshape(c.shape[0], -1).double()
+        c = c.reshape(c.shape[0], -1).double()
+        rows.append(f"{name} {float((g == c).all(1).float().mean()):.4f} "
+                    f"({float((g - c).abs().nan_to_num(posinf=0.0, neginf=0.0).max()):.3g})")
+
+    for dim in (0, 2, 5, 9, 10):   # film, lens, bounce 0's lobe and direction
+        cmp(f"dim {dim}", sample_dim(cg.sampler, *lanes_g, dim), sample_dim(cc.sampler, *lanes, dim))
+    rg, _, _ = camera_rays(cg, *lanes_g)
+    rc, _, _ = camera_rays(cc, *lanes)
+    cmp("ray o", rg.o, rc.o)
+    cmp("ray d", rg.d, rc.d)
+    dn = normalize(rc.d)
+    inf = torch.full((dn.shape[0],), float("inf"))
+    sg = intersect(cg.data, cg.flags, rc.o.to(dev), dn.to(dev), inf.to(dev))
+    sc = intersect(cc.data, cc.flags, rc.o, dn, inf)
+    for k in ("t", "p", "ng", "ns", "ss"):
+        cmp(f"hit {k}", getattr(sg, k), getattr(sc, k))
+    scg = moved(sc)
+    fl = cc.flags
+    lobes = lambda c, si: compute_lobes(c.data.mats, c.data.tex, si.material, si.uv, si.p, None,
+                                        fl.has_tex_slot, fl.tex_kinds, None, fl.bsdf_fams,
+                                        fl.mat_kinds)
+    lg, lc = lobes(cg, scg), lobes(cc, sc)
+    for k in ("kd", "eta", "spec_r", "spec_t"):
+        if getattr(lc, k) is not None:
+            cmp(f"lobes {k}", getattr(lg, k), getattr(lc, k))
+    u_lobe, u_dir = sample_dim(cc.sampler, *lanes, 9), sample_2d(cc.sampler, *lanes, 10)
+    bg = MB.bsdf_sample(moved(lc), scg.world_to_local(scg.wo), u_lobe.to(dev), u_dir.to(dev),
+                        None, fl.bsdf_fams)
+    bc = MB.bsdf_sample(lc, sc.world_to_local(sc.wo), u_lobe, u_dir, None, fl.bsdf_fams)
+    for k in ("wi", "f", "pdf", "is_specular"):
+        cmp(f"bsdf {k}", getattr(bg, k), getattr(bc, k))
+    wi = sc.local_to_world(bc.wi)
+    cmp("wi world", scg.local_to_world(bc.wi.to(dev)), wi)
+    cmp("spawn", scg.spawn_origin(wi.to(dev)), sc.spawn_origin(wi))
+    u_sel, u_light = sample_dim(cc.sampler, *lanes, 6), sample_2d(cc.sampler, *lanes, 7)
+    ng = prepare_one_light(cg, scg, moved(lc), scg.valid, u_sel.to(dev), u_light.to(dev))
+    nc = prepare_one_light(cc, sc, lc, sc.valid, u_sel, u_light)
+    for k, a, b in zip(("nee ld", "nee o", "nee d", "nee dist"), ng, nc):
+        cmp(k, a, b)
+    idx = torch.arange(fl.n_lights).repeat(64)
+    cmp("light pmf", cg.data.light_distr.discrete_pdf(idx.to(dev)),
+        cc.data.light_distr.discrete_pdf(idx))
+    print(f"config 4 stages on the crop's {lanes[0].shape[0]} lanes, the card on the CPU's "
+          f"inputs (share of lanes bit-equal to the CPU's, largest |difference|): "
+          + "; ".join(rows))
 
 
-def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None,
-                      crop_bound=0.99):
+def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None):
     """Phases 15, 16 and 18 - 22: one scene file end to end on the card,
     by its integrator (render): `timed` renders after a warm-up, each
     finite and nonzero with the kernel launches want ({kernel: launches a
     pass}; no other kernel); one render under torch.profiler; the crop
-    bitwise equal over two
-    renders and close to the CPU crop (on >= crop_bound of its pixels; a
-    bound under 0.99 comes with its lanes held to 99%, `lane_share`). small_path, where given, is the scene at a
-    lower sample count for the profiled render and the crops.
+    bitwise equal over two renders and close to the CPU crop on >= 99% of
+    its pixels. small_path, where given, is the scene at a lower sample
+    count for the profiled render and the crops.
     In scenes with a grid medium, each render's tracking-loop host reads
     are printed. -> the timed scene."""
     t0 = time.time()
@@ -820,13 +928,7 @@ def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_pa
           + f"; top device ops (ms): {top}  [{card}]")
     b, _, _ = render(load_scene(small, copt, dev), copt)
     c, _, _ = render(load_scene(small, copt, "cpu"), copt)
-    if crop_bound < 0.99:
-        share, n = lane_share(small, copt, dev)
-        print(f"{label} 32x32 crop, li_path of its {n} lanes on the card against the CPU: "
-              f"{share:.4f} within rtol 1e-3 / atol 1e-4")
-        if share < 0.99:
-            raise AssertionError(f"{label}: {share:.4f} of the crop's lanes close to the CPU's")
-    check_crop(a, b, c, label, crop_bound)
+    check_crop(a, b, c, label)
     return cs
 
 
@@ -834,15 +936,6 @@ def sampler_draws(dev, card, n=131_072, dims=45):
     """Phase 17: every sampler kind drawn on the card at n lanes of a
     256x256 film (16 spp) for dims 0 - 44, bit-equal to the same draw on
     the CPU; ms a dimension by CUDA events and tensor ops a dimension."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class OpCount(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            OpCount.n += not func.is_view
-            return func(*args, **(kwargs or {}))
-
     rng = np.random.default_rng(17)
     lanes_np = [rng.integers(0, 256, n).astype(np.int32) for _ in range(2)]
     for kind, kw in SAMPLER_KINDS:
@@ -860,12 +953,9 @@ def sampler_draws(dev, card, n=131_072, dims=45):
             if not torch.equal(got.view(torch.int32), sample_2d(spec, *cpu, dim).view(torch.int32)):
                 raise AssertionError(f"sampler {kind} {kw}: 2D slot {dim} differs")
         ms = cuda_ms(lambda: [sample_dim(spec, *gpu, d) for d in range(dims)], 3) / dims
-        OpCount.n = 0
-        with OpCount():
-            for d in range(dims):
-                sample_dim(spec, *gpu, d)
+        _, n_ops = ops_of(lambda: [sample_dim(spec, *gpu, d) for d in range(dims)])
         print(f"sampler {kind} {kw or ''}: dims 0-{dims - 1} at {n} lanes bit-equal to the CPU; "
-              f"{ms:.3f} ms and {OpCount.n / dims:.1f} tensor ops a dimension  [{card}]")
+              f"{ms:.3f} ms and {n_ops / dims:.1f} tensor ops a dimension  [{card}]")
 
 
 INTEGRATOR_LINES = (("whitted", 'Integrator "whitted" "integer maxdepth" 5'),
@@ -902,15 +992,6 @@ def integrator_renders(dev, card):
 
 def bdpt_render(dev, card):
     """Phase 22: the large bench scene under bdpt."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class OpCount(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            OpCount.n += not func.is_view
-            return func(*args, **(kwargs or {}))
-
     with tempfile.TemporaryDirectory(prefix="bdpt_") as tmp:
         full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
         os.mkdir(full)
@@ -928,10 +1009,8 @@ def bdpt_render(dev, card):
               f"pixels, mean splat {float(splat.mean()) / 3 / spp:.6f} a sample")
         px, py = (torch.as_tensor(a, device=dev) for a in sample_pixels(cs.film))
         D = int(cs.integrator_params["maxdepth"][0]) + 1
-        OpCount.n = 0
-        with torch.no_grad(), OpCount():
-            BD._bdpt_sample(cs, px, py, torch.zeros_like(px), D)
-        print(f"bdpt: {OpCount.n} tensor ops a pass of {px.shape[0]} lanes on the card  [{card}]")
+        _, n_ops = ops_of(lambda: BD._bdpt_sample(cs, px, py, torch.zeros_like(px), D))
+        print(f"bdpt: {n_ops} tensor ops a pass of {px.shape[0]} lanes on the card  [{card}]")
 
 
 def bdpt_calibration(dev, card):
@@ -960,11 +1039,202 @@ def bdpt_calibration(dev, card):
                                      f"{other}'s {means[other]}")
 
 
+def timed_render(label, cs, want, card, res=256):
+    """One render by the scene's integrator with the launch counts zeroed
+    before it: finite and nonzero, the launches want ({kernel: launches a
+    pass}) times its passes -> (image, counters, passes, wall)."""
+    zero_counts()
+    t0 = time.time()
+    img, cnt, passes = render(cs, Options())
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check_render(img, read_counts(), {k: v * passes for k, v in want.items()}, label, res=res)
+    print(f"{label} render: {wall:.3f} s, {passes} passes, launches "
+          + ", ".join(f"{k} {v * passes} ({v} a pass)" for k, v in want.items())
+          + f", counters {cnt}, mean {float(img.mean()):.6f}  [{card}]")
+    return img, cnt, passes, wall
+
+
+def profiled(label, cs, wall, want, card):
+    """A render of cs, a shorter run of the timed scene, under
+    torch.profiler: its device kernels, device time and busy share of
+    `wall`, the timed render's wall scaled to its passes."""
+    render(cs, Options())   # warm-up
+    t0 = time.time()
+    busy, n_kern, top, mine = profile_render(cs, Options())
+    print(f"{label} render under torch.profiler ({time.time() - t0:.1f} s): {n_kern} device "
+          f"kernels, {busy:.1f} ms device time, {100 * busy / 1e3 / wall:.1f}% of the timed "
+          f"render's wall for as many passes; " + ", ".join(f"{k} {mine[k]:.3f} ms" for k in want)
+          + f"; top device ops (ms): {top}  [{card}]")
+
+
+def mlt_render(dev, card):
+    """Phase 24: the large bench scene under mlt, both targets."""
+    with tempfile.TemporaryDirectory(prefix="mlt_") as tmp:
+        path = write_mlt_scene(tmp)
+        t0 = time.time()
+        out, first = render_file(path, Options(outfile=os.path.join(tmp, "entry.png")), dev)
+        torch.cuda.synchronize()
+        print(f"mlt: render_file (parse, build, render, write) {time.time() - t0:.2f} s")
+        cs = load_scene(path, None, dev)
+        img, cnt, passes, wall = timed_render("mlt", cs, {"bvh_traverse": 28}, card)
+        if passes != 4 + 1 + 8:
+            raise AssertionError(f"mlt: {passes} target evaluations, expected 13")
+        if not torch.equal(img, first):
+            raise AssertionError("mlt: two renders of the scene differ")
+        print(f"mlt: bitwise equal over two renders; {cnt['mutations_accepted']} of "
+              f"{cnt['mutations']} mutations accepted")
+        # the profile of one bootstrap chunk, the chain starts and one step
+        # (its post-processing grows with the kernels it records)
+        os.mkdir(os.path.join(tmp, "short"))
+        profiled("mlt", load_scene(write_mlt_scene(os.path.join(tmp, "short"), bootstrap=16384,
+                                                   mutations=1), None, dev),
+                 wall * 3 / passes, ("bvh_traverse",), card)
+        # one BDPT-target evaluation on 16,384 lanes, the card against the CPU
+        n_u, depth = ML._n_dims_bdpt(4), 4
+        rng = np.random.default_rng(24)
+        u = rng.uniform(0, 1, (16384, n_u)).astype(np.float32)
+        d = rng.integers(0, depth + 1, 16384).astype(np.int32)
+        zero_counts()
+        (L, raster), n_ops = ops_of(lambda: ML._eval_bdpt_target(
+            cs, torch.as_tensor(u, device=dev), depth, torch.as_tensor(d, device=dev)))
+        launches = read_counts()["bvh_traverse"]
+        cs_cpu = load_scene(path, None, "cpu")
+        t0 = time.time()
+        Lc, rc = ML._eval_bdpt_target(cs_cpu, torch.as_tensor(u), depth, torch.as_tensor(d))
+        share = close_share(L, Lc)
+        print(f"mlt: _eval_bdpt_target on 16,384 lanes: {n_ops} tensor ops and {launches} B1 "
+              f"launches on the card; {share:.4f} of lanes within rtol 1e-3 / atol 1e-4 of the "
+              f"CPU's (CPU {time.time() - t0:.1f} s), raster max |d| "
+              f"{float((raster.cpu() - rc).abs().max()):.3g}, means {float(L.mean()):.6f} / "
+              f"{float(Lc.mean()):.6f}")
+        if share < 0.99 or launches != 28:
+            raise AssertionError(f"mlt: evaluation {share:.4f} close, {launches} launches")
+        film = FilmState.zeros(cs.film, dev, splats=True)
+        uc = torch.as_tensor(u[:4096], device=dev)
+        Lq, pq = ML._eval_bdpt_target(cs, uc, depth, torch.as_tensor(d[:4096], device=dev))
+        chains = (uc, Lq, luminance(Lq), pq)
+        b = torch.tensor(0.1, device=dev)
+        eval_t = lambda v: ML._eval_bdpt_target(cs, v, depth, torch.as_tensor(d[:4096],
+                                                                             device=dev))
+        _, step_ops = ops_of(lambda: ML.mlt_step(cs, film, chains, 1, b, eval_t))
+        print(f"mlt: a step issues {step_ops} tensor ops, {step_ops - n_ops} more than an "
+              f"evaluation  [{card}]")
+        del cs_cpu, L, Lc
+        os.mkdir(os.path.join(tmp, "path"))
+        cs = load_scene(write_mlt_scene(os.path.join(tmp, "path"), target="path"), None, dev)
+        img, cnt, passes, wall = timed_render("mlt (target path)", cs, {"bvh_traverse": 5}, card)
+
+
+def sppm_render(dev, card):
+    """Phase 25: the large bench scene under sppm at SPPM_RADIUS."""
+    with tempfile.TemporaryDirectory(prefix="sppm_") as tmp:
+        path = write_sppm_scene(tmp, SPPM_RADIUS)
+        t0 = time.time()
+        _, first = render_file(path, Options(outfile=os.path.join(tmp, "entry.png")), dev)
+        torch.cuda.synchronize()
+        print(f"sppm: render_file (parse, build, render, write) {time.time() - t0:.2f} s")
+        cs = load_scene(path, None, dev)
+        img, cnt, passes, wall = timed_render("sppm", cs, {"bvh_traverse": 15}, card)
+        print(f"sppm: radius {SPPM_RADIUS}, {cnt['grid_overflows']} grid overflows")
+        if cnt["grid_overflows"] != 0 or passes != 16:
+            raise AssertionError(f"sppm: {cnt['grid_overflows']} overflows, {passes} iterations")
+        if not torch.equal(img, first):
+            raise AssertionError("sppm: two renders of the scene differ")
+        print("sppm: bitwise equal over two renders")
+        os.mkdir(os.path.join(tmp, "short"))   # the profile of 2 iterations
+        profiled("sppm", load_scene(write_sppm_scene(os.path.join(tmp, "short"), SPPM_RADIUS,
+                                                     iterations=2), None, dev),
+                 wall * 2 / passes, ("bvh_traverse",), card)
+        px, py = (torch.as_tensor(a, device=dev) for a in sample_pixels(cs.film))
+        n = px.shape[0]
+        state = (torch.full((n,), SPPM_RADIUS, device=dev), torch.zeros((n, 3), device=dev),
+                 torch.zeros((n, 3), device=dev), torch.zeros(n, device=dev))
+        _, n_ops = ops_of(lambda: SP._sppm_iteration(cs, 5, n, px, py, 0, *state))
+        print(f"sppm: an iteration issues {n_ops} tensor ops on the card  [{card}]")
+        # one iteration's visible points and photon flux on a 32x32 crop's
+        # lanes, the card against the CPU: 16,384 photons at radius 0.3, so
+        # that the crop's points receive deposits
+        copt = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
+        out = []
+        t0 = time.time()
+        for dv in (dev, "cpu"):
+            c = load_scene(path, copt, dv)
+            qx, qy = (torch.as_tensor(a, device=dv) for a in sample_pixels(c.film))
+            r = torch.full((qx.shape[0],), 0.3, device=dv)
+            vp, ld = SP.camera_pass(c, 5, qx, qy, 3)
+            grid = SP.build_grid(c, vp, r)
+            phi, m, ovf = SP.photon_pass(c, 5, 16384, 3, vp, grid, r)
+            out.append((vp, ld, phi, m, int(ovf)))
+        (vg, lg, pg, mg, og), (vc, lc, pc, mc, oc) = out
+        valid = float((vg.valid.cpu() == vc.valid).float().mean())
+        shares = {k: close_share(a, b) for k, a, b in (("p", vg.p, vc.p), ("beta", vg.beta, vc.beta),
+                                                       ("ld", lg, lc), ("phi", pg, pc),
+                                                       ("m", mg[:, None], mc[:, None]))}
+        print(f"sppm: one iteration on the 32x32 crop's {vc.valid.shape[0]} lanes: vp_valid equal "
+              f"on {valid:.4f}; within rtol 1e-3 / atol 1e-4 of the CPU's: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in shares.items())
+              + f"; {int(mc.sum())} deposits and {oc} overflows on the CPU, {int(mg.sum())} and "
+              f"{og} on the card ({time.time() - t0:.1f} s)")
+        if valid < 0.99 or min(shares.values()) < 0.99 or int(mc.sum()) < 50 or og != oc:
+            raise AssertionError("sppm: the crop's iteration differs from the CPU's")
+
+
+def sppm_radii(dev, card, radii=(0.04, 0.03, 0.025, 0.02, 0.015)):
+    """Not a phase: the grid overflows of phase 25's render at each initial
+    radius, the way SPPM_RADIUS was chosen (the largest with none)."""
+    for r in radii:
+        with tempfile.TemporaryDirectory(prefix="sppm_radius_") as tmp:
+            cs = load_scene(write_sppm_scene(tmp, r), None, dev)
+            t0 = time.time()
+            img, cnt, passes = render(cs, Options())
+            torch.cuda.synchronize()
+            print(f"sppm at radius {r}: {cnt['grid_overflows']} grid overflows in {passes} "
+                  f"iterations, {time.time() - t0:.3f} s, mean {float(img.mean()):.6f}  [{card}]")
+
+
+def sppm_mlt_calibration(dev, card):
+    """Phase 26: MLT and SPPM against path on the reference tests' point
+    scene at their own settings (20x20)."""
+    lines = {"path": 'Integrator "path" "integer maxdepth" 3',
+             "mlt": 'Integrator "mlt" "integer maxdepth" 3 "integer mutationsperpixel" 400',
+             "sppm": 'Integrator "sppm" "integer numiterations" 64 "float radius" 0.25 '
+                     '"integer maxdepth" 3'}
+    means = {}
+    with tempfile.TemporaryDirectory(prefix="calibration26_") as tmp:
+        for kind, line in lines.items():
+            path = os.path.join(tmp, f"{kind}.pbrt")
+            with open(path, "w") as f:
+                f.write(calibration_scene("point", line))
+            t0 = time.time()
+            img, cnt, passes = render(load_scene(path, None, dev))
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"point scene under {kind}: not finite")
+            means[kind] = float(img.mean())
+            print(f"point calibration scene under {kind}: 20x20, {passes} passes in "
+                  f"{time.time() - t0:.3f} s, counters {cnt}, mean {means[kind]:.6f}  [{card}]")
+            if kind == "sppm" and cnt["grid_overflows"] != 0:
+                raise AssertionError(f"sppm: {cnt['grid_overflows']} grid overflows")
+    for kind, bound in (("mlt", 0.05), ("sppm", 0.10)):
+        rel = abs(means[kind] - means["path"]) / means["path"]
+        print(f"point: {kind}'s mean is {rel:.4f} off path's (bound {bound})")
+        if not rel < bound:
+            raise AssertionError(f"point: {kind}'s mean {means[kind]} is {rel:.4f} off path's")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     dev = torch.device("cuda")
     card = card_line()
+    marks = [time.time()]
+
+    def lap(label):   # the wall of each group of phases, for the script's time limit
+        marks.append(time.time())
+        print(f"time: {label} {marks[-1] - marks[-2]:.1f} s (total {marks[-1] - marks[0]:.1f} s)",
+              flush=True)
+
     print(card)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
@@ -978,6 +1248,7 @@ def main():
             f"stack frame, {v.get('static_smem')} bytes static shared memory"
             for k, v in native.kernel_resources(name).items()))
 
+    lap("phase 2")
     # ---- 3: kernel vs plain at the main path's shapes ----
     t0 = time.time()
     cs = build_bench_scene(large=True, device=dev)
@@ -1004,6 +1275,7 @@ def main():
               f"{timings[name][0]:.3f} ms, plain {timings[name][1]:.3f} ms  [{card}]")
     print(f"kernel vs plain: bit-equal, max |dt| {err}")
 
+    lap("phase 3")
     # ---- 4: the smoke scene through the CLI entry ----
     from pbrt_tpu_torch.__main__ import main as cli
     from pbrt_tpu_torch.io.image_io import read_png
@@ -1024,6 +1296,7 @@ def main():
             raise AssertionError(f"smoke scene is not sRGB 188 everywhere: {np.unique(img)}")
     print("smoke scene: every pixel sRGB 188")
 
+    lap("phase 4")
     # ---- 5: the large bench scene, end to end ----
     opts = Options()
     render_sampler_integrator(small, opts)  # warm-up
@@ -1051,6 +1324,7 @@ def main():
     c, _, _ = render_sampler_integrator(build_bench_scene(True, "cpu", crop), crop)
     check_crop(a, b, c, "large")
 
+    lap("phase 5")
     # ---- 6: the instance kernel vs its plain walk on the instanced scenes ----
     inst_err, inst_timing, inst_counts = 0.0, {}, None
     for animated in (False, True):
@@ -1089,9 +1363,11 @@ def main():
           f"{inst_counts.enters / n_shell:.2f} instance entries; stack at most "
           f"{inst_counts.max_stack} entries")
 
+    lap("phase 6")
     # ---- 7: both instanced scenes, end to end ----
     inst_launches = sum(render_instanced(animated, dev, card) for animated in (False, True))
 
+    lap("phase 7")
     # ---- 8: the PLY bench scene's tree through the "packet" kernel (B4/B5) ----
     ply_dir = tempfile.TemporaryDirectory(prefix="ply_bench_")
     t0 = time.time()
@@ -1120,6 +1396,7 @@ def main():
             [("bvh_traverse_packet", kbp), ("bvh_traverse_block", kbp), ("bvh_traverse", kbp)],
             rays, f"PLY tree {label} launch", card, plain_name="bvh_traverse_packet")
 
+    lap("phase 8")
     # ---- 9: B2 on the PLY tree, B3 on both bench knots and the PLY tree ----
     errs["bvh_traverse_all"] = max(
         compare(kbp, *cam_p, name="bvh_traverse_all"),
@@ -1156,6 +1433,7 @@ def main():
         time_kernels([("bvh4_traverse", kb4s["large"]), ("bvh_traverse_all", kb),
                       ("bvh_traverse", kb)], rays, f"large knot {label} launch", card)
 
+    lap("phase 9")
     # ---- 10: the PLY bench scene and its loopsubdiv variant, end to end ----
     crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
     a, _, _ = render_sampler_integrator(build_ply_bench_scene(ply_dir.name, dev, options=crop),
@@ -1202,6 +1480,7 @@ def main():
           f"[{card}]")
     ply_dir.cleanup()
 
+    lap("phase 10")
     # ---- 11: the sphere scene of BASELINE.json's first configuration ----
     cs_s = render_quadric_scene("sphere", lambda dv, o=None: build_sphere_scene(dv, o),
                                 (0.4375, 0.5625, 0.4375, 0.5625), {}, dev, card)
@@ -1211,6 +1490,7 @@ def main():
     print(f"quadric pass of the sphere scene (1 sphere), {n_pair} rays: {q_ms:.3f} ms  [{card}]")
     del cs_s
 
+    lap("phase 11")
     # ---- 12: the quadric showcase ----
     cs_q = render_quadric_scene("showcase", lambda dv, o=None: build_quadric_showcase(dv, o),
                                 (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 5}, dev, card)
@@ -1230,10 +1510,12 @@ def main():
           f"{min(b1_ms):.3f} ms  [{card}]")
     del cs_q, kbq, cam_q, t_q
 
+    lap("phase 12")
     # ---- 13: the differentiable pass; 14: the textured bench scene ----
     diff_pass(dev, card)
     textured_render(dev, card)
 
+    lap("phases 13, 14")
     # ---- 15: BASELINE config 3; 16: the all-kinds scene ----
     with tempfile.TemporaryDirectory(prefix="config3_") as tmp:
         scene_file_render("config 3", write_env_material_scene(tmp, large=True), 256,
@@ -1242,9 +1524,11 @@ def main():
         scene_file_render("all kinds", write_all_kinds_scene(tmp), 64,
                           (0.25, 0.75, 0.25, 0.75), {"bvh_traverse": 6}, dev, card)
 
+    lap("phases 15, 16")
     # ---- 17: every sampler kind on the card ----
     sampler_draws(dev, card)
 
+    lap("phase 17")
     # ---- 18: BASELINE config 2; 19: BASELINE config 4; 20: the volpath scene ----
     with tempfile.TemporaryDirectory(prefix="config2_") as tmp:
         scene_file_render("config 2", write_config2_scene(tmp), 256, (0.5, 0.625, 0.5, 0.625),
@@ -1253,21 +1537,27 @@ def main():
         full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
         os.mkdir(full)
         os.mkdir(low)
-        # glass: the card's rounding moves a path through the knot's specular
-        # chains now and then, and a pixel averages 16 paths, so the crop is
-        # held on 95% of its pixels and its lanes on 99%
+        small = write_config4_scene(low, spp=16)
         scene_file_render("config 4", write_config4_scene(full), 256, (0.5, 0.625, 0.5, 0.625),
-                          {"bvh_traverse": 6}, dev, card, timed=1,
-                          small_path=write_config4_scene(low, spp=16), crop_bound=0.95)
+                          {"bvh_traverse": 6}, dev, card, timed=1, small_path=small)
+        config4_stages(small, Options(crop_window=(0.5, 0.625, 0.5, 0.625)), dev)
     with tempfile.TemporaryDirectory(prefix="volpath_") as tmp:
         scene_file_render("volpath", write_volpath_scene(tmp), 256, (0.5, 0.625, 0.5, 0.625),
                           {"bvh_traverse": 6 + 5 * TR_SEGMENTS}, dev, card)
 
+    lap("phases 18, 19, 20")
     # ---- 21: whitted and directlighting; 22: BDPT; 23: BDPT against path and volpath ----
     integrator_renders(dev, card)
     bdpt_render(dev, card)
     bdpt_calibration(dev, card)
 
+    lap("phases 21, 22, 23")
+    # ---- 24: MLT; 25: SPPM; 26: MLT and SPPM against path ----
+    mlt_render(dev, card)
+    sppm_render(dev, card)
+    sppm_mlt_calibration(dev, card)
+
+    lap("phases 24, 25, 26")
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "
         f"box tests, {c.tri_tests / n_pair:.2f} triangle tests, stack at most {c.max_stack}"

@@ -1,5 +1,5 @@
 """CLI: python -m pbrt_tpu_torch [--device cuda|cpu] [--outfile F]
-[--cropwindow X0 X1 Y0 Y1] [--quick] scene.pbrt ...
+[--cropwindow X0 X1 Y0 Y1] [--quick] [--sppm-radius R] scene.pbrt ...
 
 Renders each scene with the PyTorch port, on the card unless --device cpu
 is given. On the card the BVH and instance walks run the CUDA kernels
@@ -27,6 +27,8 @@ def main(argv=None):
     ap.add_argument("--wavefront", type=int, default=1 << 17,
                     help="lanes per wavefront pass")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sppm-radius", type=float, default=0.0,
+                    help="SPPM's initial photon radius (over 0: in place of the scene's)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -38,7 +40,8 @@ def main(argv=None):
                            "(torch.cuda.is_available() is false); pass --device cpu")
     opts = Options(quick=args.quick, outfile=args.outfile,
                    crop_window=tuple(args.cropwindow) if args.cropwindow else None,
-                   wavefront_size=args.wavefront, seed=args.seed)
+                   wavefront_size=args.wavefront, seed=args.seed,
+                   sppm_radius=args.sppm_radius)
     for path in args.scenes:
         t0 = time.time()
         try:

@@ -76,8 +76,18 @@ def length(v):
     return torch.sqrt(length_squared(v))
 
 
+def rsqrt(x):
+    """1 / sqrt(x): torch.rsqrt on the CPU; on the card an IEEE square root
+    and reciprocal. The CPU's rsqrt rounds as 1 / sqrt nearly always; the
+    card's differs from it on about a quarter of the lanes by up to two
+    ulps, and through a chain of glass that moves a path."""
+    if x.device.type == "cpu":
+        return torch.rsqrt(x)
+    return torch.reciprocal(torch.sqrt(x))
+
+
 def normalize(v):
-    return v * torch.rsqrt(torch.clamp(length_squared(v), min=1e-20))[..., None]
+    return v * rsqrt(torch.clamp(length_squared(v), min=1e-20))[..., None]
 
 
 def lerp(t, a, b):

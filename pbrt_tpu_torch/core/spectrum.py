@@ -1,5 +1,6 @@
 """Host colour conversions that the .pbrt front end needs (port of the numpy
-helpers of pbrt_tpu/core/spectrum.py). The device spectrum is RGB."""
+helpers of pbrt_tpu/core/spectrum.py), and luminance. The device spectrum
+is RGB."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,6 +10,12 @@ XYZ_TO_RGB = np.array([
     [-0.969256, 1.875991, 0.041556],
     [0.055648, -0.204043, 1.057311]], np.float32)
 RGB_TO_Y = (0.212671, 0.715160, 0.072169)
+
+
+def luminance(rgb):
+    """Y of linear RGB [..., 3] (the reference's RGBSpectrum::y()), summed
+    in channel order as the reference's reduction adds."""
+    return rgb[..., 0] * RGB_TO_Y[0] + rgb[..., 1] * RGB_TO_Y[1] + rgb[..., 2] * RGB_TO_Y[2]
 
 
 def xyz_to_rgb(xyz):

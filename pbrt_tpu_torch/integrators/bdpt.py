@@ -137,7 +137,7 @@ def _convert_density(pdf_sa, from_p, to_p, to_ng):
     at a medium vertex)."""
     w = to_p - from_p
     d2 = torch.clamp(vm.length_squared(w), min=1e-12)
-    wn = w * torch.rsqrt(d2)[..., None]
+    wn = w * vm.rsqrt(d2)[..., None]
     return pdf_sa * _cos_or_one(to_ng, wn) / d2
 
 
@@ -610,7 +610,7 @@ def _bdpt_sample(cs, px, py, sidx, D, strategies=STRATEGIES, st_filter=None, sam
             l_ok = (light_v.vtype[:, ks] > 0) & ~light_v.delta[:, ks] & (n_light >= ks + 1)
             d_c2l = light_v.p[:, ks] - cam_v.p[:, kt]
             dist2 = torch.clamp(vm.length_squared(d_c2l), min=1e-12)
-            wi = d_c2l * torch.rsqrt(dist2)[:, None]
+            wi = d_c2l * vm.rsqrt(dist2)[:, None]
             f_cam, pc_f, pc_r = _f_at(cs, cam_v, kt, wo_c, wi, lobes_of("c", cam_v, kt))
             f_li, pl_f, pl_r = _f_at(cs, light_v, ks, _wo_of(light_v, le.o, ks), -wi,
                                      lobes_of("l", light_v, ks))

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from pbrt_tpu_torch import lights as LT
+from pbrt_tpu_torch.cameras import generate_rays
 from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.interaction import compute_differentials, specular_diff_rays
 from pbrt_tpu_torch.core.math import normalize
@@ -39,18 +40,35 @@ COUNTERS = ("camera_rays", "shadow_rays", "bounce_rays", "valid_hits",
             "paths_terminated_rr")
 
 
-def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.0):
+def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.0,
+            sampler_fn=None, p_film_override=None):
     """Radiance estimate for one sample of each lane. Records an autograd
     tape where gradients are enabled and the scene's tables require them.
+
+    sampler_fn: a dimension -> [N] function that stands in for the
+    sampler; p_film_override: [N,2] film positions to trace, with the lens
+    drawn from dimensions 2 - 3 and the time from dimension 4, and no ray
+    differentials (MLT's primary sample space drives both).
 
     -> (L [N,3], p_film [N,2], ray_weight [N], counters): counters are
     int64 device tensors (see COUNTERS) of live rays and hits."""
     spec, data, flags = cs.sampler, cs.data, cs.flags
     n = px.shape[0]
     dev = px.device
+    if sampler_fn is None:
+        sample_dim_ = lambda dim: sample_dim(spec, px, py, sample_idx, dim)
+        sample_2d_ = lambda dim: sample_2d(spec, px, py, sample_idx, dim)
+    else:
+        sample_dim_ = sampler_fn
+        sample_2d_ = lambda dim: torch.stack([sampler_fn(dim), sampler_fn(dim + 1)], -1)
     track_diff = T_IMAGEMAP in flags.tex_kinds
-    rays, ray_w, p_film = camera_rays(cs, px, py, sample_idx,
-                                      spp_for_diff=spec.rounded_spp() if track_diff else None)
+    if p_film_override is None:
+        rays, ray_w, p_film = camera_rays(cs, px, py, sample_idx,
+                                          spp_for_diff=spec.rounded_spp() if track_diff else None)
+    else:
+        p_film = p_film_override
+        rays, ray_w = generate_rays(cs.camera, p_film, False,
+                                    sample_2d_(2) if cs.camera.lens_radius > 0.0 else None)
     o, d = rays.o, rays.d
     L = torch.zeros((n, 3), device=dev)
     beta = torch.ones((n, 3), device=dev)
@@ -66,7 +84,7 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
     cnt["camera_rays"] += n
 
     # ray time places animated instances (the camera's time dimension)
-    ray_time = sample_dim(spec, px, py, sample_idx, 4) if flags.n_instances > 0 else None
+    ray_time = sample_dim_(4) if flags.n_instances > 0 else None
     si = intersect(data, flags, o, normalize(d), t_max, time=ray_time)
     diff_rays = rays
     for bounce in range(max_depth + 1):
@@ -100,22 +118,21 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         if bounce == max_depth:
             break
 
-        u_mix = sample_dim(spec, px, py, sample_idx, base + 0) if M_MIX in flags.mat_kinds \
-            else None
+        u_mix = sample_dim_(base + 0) if M_MIX in flags.mat_kinds else None
         lobes = compute_lobes(data.mats, data.tex, si.material, si.uv, si.p, si.duv,
                               flags.has_tex_slot, flags.tex_kinds, u_mix, fams, flags.mat_kinds)
 
         # NEE: light sample now, occlusion in the merged launch below
-        u_sel = sample_dim(spec, px, py, sample_idx, base + 1)
-        u_light = sample_2d(spec, px, py, sample_idx, base + 2)
+        u_sel = sample_dim_(base + 1)
+        u_light = sample_2d_(base + 2)
         cnt["shadow_rays"] += active.sum()
         ld, o_sh, d_sh, dist_sh, nee_live = prepare_one_light(
             cs, si, lobes, active, u_sel, u_light)
         beta_nee = beta
 
         # BSDF sampling
-        u_lobe = sample_dim(spec, px, py, sample_idx, base + 4)
-        u_dir = sample_2d(spec, px, py, sample_idx, base + 5)
+        u_lobe = sample_dim_(base + 4)
+        u_dir = sample_2d_(base + 5)
         bs = B.bsdf_sample(lobes, si.world_to_local(si.wo), u_lobe, u_dir, ftab, fams)
         wi_world = si.local_to_world(bs.wi)
         cos_w = vm.absdot(wi_world, si.ns)
@@ -141,7 +158,7 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         # Russian roulette
         if bounce > 3:
             rr_beta = vm.max_component(beta if eta_scale is None else beta * eta_scale[:, None])
-            u_rr = sample_dim(spec, px, py, sample_idx, base + 7)
+            u_rr = sample_dim_(base + 7)
             q = torch.clamp(1.0 - rr_beta, min=0.05)
             do_rr = rr_beta < rr_threshold
             survive = ~do_rr | (u_rr >= q)

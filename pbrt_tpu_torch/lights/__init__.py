@@ -292,7 +292,7 @@ def sample_li(lights, light_idx, ref_p, u2, world_radius, with_normal=False) -> 
         pos = pr[:, 0:3]
         to_l = pos - ref_p
         d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
-        wi = to_l * torch.rsqrt(d2)[:, None]
+        wi = to_l * vm.rsqrt(d2)[:, None]
         li = Lv / d2[:, None]
         if L_SPOT in kinds:
             fall = _spot_falloff(dot(-wi, pr[:, 3:6]), pr[:, 6], pr[:, 7])
@@ -404,7 +404,7 @@ def _sample_area(lights, li_idx, ref_p, u2) -> LiSample:
     p, ng, total_area = _area_pick(lights, li_idx, pr, u2)
     to_ref = ref_p - p
     d2 = torch.clamp(vm.length_squared(to_ref), min=1e-12)
-    wi = -to_ref * torch.rsqrt(d2)[:, None]
+    wi = -to_ref * vm.rsqrt(d2)[:, None]
     cos_l = dot(ng, -wi)
     emits = torch.where(two_sided, torch.abs(cos_l) > 1e-7, cos_l > 1e-7)
     pdf = d2 / torch.clamp(torch.abs(cos_l), min=1e-9) / total_area

@@ -1,8 +1,9 @@
 """Render driver: CompiledScene -> image (port of pbrt_tpu/render.py
 without checkpoints, previews or the stats report).
 
-`render` sends a BDPT scene to its own driver (integrators/bdpt.py) and
-every other to render_sampler_integrator, whose radiance function `li_fn`
+`render` sends an SPPM, BDPT or MLT scene to its own driver
+(integrators/sppm.py, bdpt.py, mlt.py) and every other to
+render_sampler_integrator, whose radiance function `li_fn`
 picks as the reference's _li_fn does: path, volpath, whitted,
 directlighting with its strategy, and li_path with maxdepth alone for a
 kind it does not name. All pixels of the film's sample bounds, in Morton
@@ -23,7 +24,9 @@ from pbrt_tpu_torch.film import FilmState, add_samples, develop
 from pbrt_tpu_torch.filters import build_table
 from pbrt_tpu_torch.integrators.bdpt import render_bdpt
 from pbrt_tpu_torch.integrators.direct import li_direct
+from pbrt_tpu_torch.integrators.mlt import render_mlt
 from pbrt_tpu_torch.integrators.path import COUNTERS, li_path
+from pbrt_tpu_torch.integrators.sppm import render_sppm
 from pbrt_tpu_torch.integrators.volpath import li_volpath
 from pbrt_tpu_torch.integrators.whitted import li_whitted
 
@@ -36,6 +39,7 @@ class Options:
     crop_window: Optional[Tuple[float, float, float, float]] = None
     wavefront_size: int = 1 << 17
     seed: int = 0
+    sppm_radius: float = 0.0   # over 0: SPPM's initial radius, in place of the scene's
 
 
 def morton2(x, y, bits=16):
@@ -74,13 +78,18 @@ def li_fn(cs):
     return functools.partial(li_path, max_depth=max_depth)
 
 
+DRIVERS = {"sppm": render_sppm, "bdpt": render_bdpt, "mlt": render_mlt}
+
+
 def render(cs, options: Optional[Options] = None):
     """-> (image [H,W,3] linear RGB tensor on the scene's device, counters
-    {name: int} summed over all passes, number of passes), by the scene's
-    integrator."""
-    if cs.integrator_kind == "bdpt":
-        return render_bdpt(cs, options)
-    return render_sampler_integrator(cs, options)
+    {name: int}, number of passes), by the scene's integrator: SPPM, BDPT
+    and MLT by their own drivers (their counters and passes are theirs:
+    SPPM's grid overflows and iterations, MLT's mutations and target
+    evaluations), every other by render_sampler_integrator (the live-ray
+    counters summed over all passes)."""
+    driver = DRIVERS.get(cs.integrator_kind, render_sampler_integrator)
+    return driver(cs, options)
 
 
 @torch.no_grad()

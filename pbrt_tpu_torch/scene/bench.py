@@ -778,16 +778,43 @@ def write_volpath_scene(dirname, large=True, res=None, spp=4, grid=True, knot=No
                             knot or KNOT[large])
 
 
-def write_bdpt_scene(dirname, large=True, res=None, spp=4):
+def write_bdpt_scene(dirname, large=True, res=None, spp=4, integrator=None):
     """Write the bench scene (its knot read from knot.ply) under
-    Integrator "bdpt" at depth 4 into dirname -> the scene file's path;
-    res defaults to 256 (large) or 64."""
+    Integrator "bdpt" at depth 4, or under the Integrator line
+    `integrator`, into dirname -> the scene file's path; res defaults to
+    256 (large) or 64."""
     text = ply_scene_text('Shape "plymesh" "string filename" "knot.ply"').replace(
-        'Integrator "path"', 'Integrator "bdpt"').replace(
+        'Integrator "path" "integer maxdepth" 4',
+        integrator or 'Integrator "bdpt" "integer maxdepth" 4').replace(
         'Sampler "02sequence" "integer pixelsamples" 4',
         f'Sampler "02sequence" "integer pixelsamples" {spp}').replace(
         "[256]", f"[{res or (256 if large else 64)}]")
     return _knot_scene_file(dirname, text, KNOT[large])
+
+
+def mlt_line(target="bdpt", maxdepth=4, bootstrap=65536, chains=65536, mutations=8):
+    """The MLT Integrator line of the card's MLT scene: 65,536 chains take
+    mutations x pixels / chains steps (8 at 256x256)."""
+    return (f'Integrator "mlt" "integer maxdepth" {maxdepth} "integer bootstrapsamples" '
+            f'{bootstrap} "integer chains" {chains} "integer mutationsperpixel" {mutations} '
+            f'"string target" "{target}"')
+
+
+def sppm_line(radius, maxdepth=5, iterations=16, photons=-1):
+    """The SPPM Integrator line of the card's SPPM scene (photons -1: one a
+    pixel)."""
+    return (f'Integrator "sppm" "integer maxdepth" {maxdepth} "integer numiterations" '
+            f'{iterations} "integer photonsperiteration" {photons} "float radius" {radius}')
+
+
+def write_mlt_scene(dirname, large=True, res=None, **line):
+    """The bench scene of write_bdpt_scene under mlt_line(**line)."""
+    return write_bdpt_scene(dirname, large, res, integrator=mlt_line(**line))
+
+
+def write_sppm_scene(dirname, radius, large=True, res=None, **line):
+    """The bench scene of write_bdpt_scene under sppm_line(radius, **line)."""
+    return write_bdpt_scene(dirname, large, res, integrator=sppm_line(radius, **line))
 
 
 # The calibration scenes of the reference's integrator tests

@@ -39,8 +39,6 @@ from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
 from pbrt_tpu_torch.textures import KIND_IDS as TEX_KIND_IDS, T_CHECKER3D, TextureTable
 from pbrt_tpu_torch.textures.image import build_atlas, load_image
 
-# integrators with a driver of their own in the reference that the port lacks
-_UNPORTED_INTEGRATORS = ("sppm", "mlt")
 ENV_KEYS = ("env_func", "env_cond_cdf", "env_cond_int", "env_marg_cdf", "env_marg_int")
 _MAPPINGS = {"uv": 0, "spherical": 1, "cylindrical": 2, "planar": 3}
 
@@ -315,8 +313,6 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                       integrator_params, device) -> CompiledScene:
     """Host tables + specs -> CompiledScene with its tensors on `device`."""
     dev = torch.device(device)
-    if integrator_kind in _UNPORTED_INTEGRATORS:
-        raise NotImplementedError(f"integrator {integrator_kind!r} is not ported")
     # other integrator parameters are ignored, as in the reference; it
     # renders spectrally where "spectral" is true and no fourier table is
     # present (the port raises there until its spectral mode lands)

@@ -5,6 +5,7 @@ The integrators are held against the reference's outputs committed in
 tests/torch_refs (make_refs.py ran pbrt_tpu jitted on the CPU on the same
 scene text, lanes and seed), so no test here compiles a JAX integrator.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +16,7 @@ from pbrt_tpu_torch.integrators.direct import li_direct
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.integrators.volpath import li_volpath
 from pbrt_tpu_torch.integrators.whitted import li_whitted
-from pbrt_tpu_torch.io.image_io import read_png
+from pbrt_tpu_torch.io.image_io import read_pfm, read_png
 from pbrt_tpu_torch.render import Options, li_fn, render, render_sampler_integrator
 from pbrt_tpu_torch.scene import load_scene_string
 from pbrt_tpu_torch.scene.bench import calibration_scene
@@ -110,8 +111,8 @@ def test_repaired_forms_render_as_without_them(form):
 
 
 @pytest.mark.parametrize("line,what", [
-    ('Integrator "sppm"', "integrator 'sppm'"),
-    ('Integrator "mlt"', "integrator 'mlt'"),
+    ('Integrator "sppm" "bool spectral" "true"', "spectral"),
+    ('Integrator "mlt" "bool spectral" "true"', "spectral"),
     ('Integrator "path" "bool spectral" "true"', "spectral"),
     ('Accelerator "kdtree"', "accelerator 'kdtree'"),
     ('Camera "realistic"', "camera 'realistic'"),
@@ -124,25 +125,43 @@ def test_unported_forms_still_raise(line, what):
 
 
 def test_cli_renders_every_new_integrator(tmp_path):
-    """whitted, directlighting (both strategies) and bdpt through the CLI
-    (render_file -> render): an image each, finite and lit; whitted's
-    equals render_sampler_integrator's."""
+    """whitted, directlighting (both strategies), bdpt, mlt (both targets)
+    and sppm (its radius from --sppm-radius) through the CLI (render_file
+    -> render): an image each, finite and lit; whitted's equals
+    render_sampler_integrator's."""
     from pbrt_tpu_torch.__main__ import main
     lines = {"whitted": 'Integrator "whitted" "integer maxdepth" 2',
              "direct_all": 'Integrator "directlighting" "integer maxdepth" 2',
              "direct_one": 'Integrator "directlighting" "string strategy" "one"',
-             "bdpt": 'Integrator "bdpt" "integer maxdepth" 2'}
+             "bdpt": 'Integrator "bdpt" "integer maxdepth" 2',
+             "mlt": 'Integrator "mlt" "integer maxdepth" 2 "integer bootstrapsamples" 256 '
+                    '"integer chains" 64 "integer mutationsperpixel" 4',
+             "mlt_path": 'Integrator "mlt" "string target" "path" "integer maxdepth" 2 '
+                         '"integer bootstrapsamples" 256 "integer chains" 64',
+             "sppm": 'Integrator "sppm" "integer maxdepth" 3 "integer numiterations" 2 '
+                     '"integer photonsperiteration" 4096 "float radius" 40'}
     paths = []
     for name, line in lines.items():
+        ext = "pfm" if name == "sppm" else "png"   # sppm's image is read back as floats
         text = calibration_scene("point", line, res=8, spp=1).replace(
-            'Film "image"', f'Film "image" "string filename" "{tmp_path / name}.png"')
+            'Film "image"', f'Film "image" "string filename" "{tmp_path / name}.{ext}"')
         paths.append(tmp_path / f"{name}.pbrt")
         paths[-1].write_text(text)
-    assert main(["--device", "cpu", "--quiet", *map(str, paths)]) == 0
+    assert main(["--device", "cpu", "--quiet", "--sppm-radius", "0.5", *map(str, paths)]) == 0
     for name in lines:
-        img = read_png(str(tmp_path / f"{name}.png"))
-        assert img.shape == (8, 8, 3) and img.max() > 20, name
+        if name == "sppm":
+            img = read_pfm(str(tmp_path / "sppm.pfm"))
+            assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0.05
+        else:
+            img = read_png(str(tmp_path / f"{name}.png"))
+            assert img.shape == (8, 8, 3) and img.max() > 20, name
     cs = load_scene_string(paths[0].read_text(), device="cpu")
     a, _, _ = render(cs)
     b, _, _ = render_sampler_integrator(cs)
     assert torch.equal(a, b) and torch.isfinite(a).all()
+    # the CLI's sppm image is the one at --sppm-radius, not at the scene's radius
+    cs = load_scene_string(paths[-1].read_text(), device="cpu")
+    cli = read_pfm(str(tmp_path / "sppm.pfm"))
+    for radius, same in ((0.5, True), (0.0, False)):
+        img, _, _ = render(cs, Options(sppm_radius=radius))
+        assert np.array_equal(img.numpy(), cli) == same, radius

@@ -374,8 +374,8 @@ def test_unported_directives_raise(directive, what):
 
 @pytest.mark.parametrize("line,what", [
     ('Camera "environment"', "camera 'environment'"),
-    ('Integrator "sppm"', "integrator 'sppm'"),
-    ('Integrator "mlt"', "integrator 'mlt'"),
+    ('Camera "realistic" "string lensfile" "wide.dat"', "camera 'realistic'"),
+    ('Integrator "bdpt" "bool spectral" "true"', "spectral"),
     ('Camera "realistic"', "camera 'realistic'"),
     ('Accelerator "kdtree"', "accelerator 'kdtree'"),
 ])

@@ -94,3 +94,43 @@ def load(name):
         out = {k: z[k] for k in z.files}
     out["scene"] = str(out["scene"])
     return out
+
+
+# ---- MLT and SPPM (tests/test_torch_mlt.py, tests/test_torch_sppm.py) ----
+MLT_SCENES = ("point", "knot")
+SMALL_RES = 16
+# the whole render_mlt case: bootstrap samples, chains, mutations a pixel
+# (4 steps of 256 chains on the 16x16 film)
+MLT_RENDER = ("render_mlt_point", "point", (1024, 256, 4))
+SPPM_SCENES = {"point": 0.25, "knot": 1.0}   # scene: initial radius
+SPPM_PHOTONS = 16384   # photons an iteration of the one-iteration cases
+SPPM_ITERATION = 1                           # the iteration index of the one-iteration cases
+SPPM_RENDER = ("render_sppm_point", "point", 4)   # name, scene, iterations
+
+
+def mlt_line(target="bdpt", bootstrap=None, chains=None, mutations=None, depth=DEPTH):
+    line = f'Integrator "mlt" "integer maxdepth" {depth} "string target" "{target}"'
+    for k, v in (("bootstrapsamples", bootstrap), ("chains", chains),
+                 ("mutationsperpixel", mutations)):
+        if v is not None:
+            line += f' "integer {k}" {v}'
+    return line
+
+
+def sppm_line(radius, iterations=1, photons=SPPM_PHOTONS, depth=DEPTH):
+    return (f'Integrator "sppm" "integer maxdepth" {depth} "integer numiterations" {iterations} '
+            f'"float radius" {radius} "integer photonsperiteration" {photons}')
+
+
+def small_scene(name_scene, line):
+    """A calibration scene at SMALL_RES under an MLT or SPPM line."""
+    from pbrt_tpu_torch.scene.bench import calibration_scene
+    return calibration_scene(name_scene, line, res=SMALL_RES)
+
+
+def mlt_inputs(seed, n_dims, n=N_LANES):
+    """A target evaluation's inputs from a seed: the primary sample
+    vectors u [n, n_dims] and each lane's path depth [n] (0 - DEPTH)."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, (n, n_dims)).astype(np.float32),
+            rng.integers(0, DEPTH + 1, n).astype(np.int32))
