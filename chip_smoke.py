@@ -2,12 +2,14 @@
 
 Phases (any failure raises and exits non-zero; nothing catches it):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the three kernel sources, the BVH traversals (csrc/bvh_traverse.cu,
-     csrc/bvh4_traverse.cu) and the two-level instance traversal
-     (csrc/instance_traverse.cu), one nvcc each, started together; print
+  2. build the four kernel sources, the BVH traversals (csrc/bvh_traverse.cu,
+     csrc/bvh4_traverse.cu), the two-level instance traversal
+     (csrc/instance_traverse.cu) and the kd-tree walk
+     (csrc/kdtree_traverse.cu), one nvcc each, started together; print
      each kernel's registers, spill bytes, stack frame and shared memory
      as ptxas reports them (walk_kernel<1,1,0> is B1, <1,1,1> B2 and
-     <0,0,1> B4/B5; traverse4_kernel B3; instance_kernel<0>/<1> B6);
+     <0,0,1> B4/B5; traverse4_kernel B3; instance_kernel<0>/<1> B6;
+     kd_kernel K1);
   3. hold B1 (walk_kernel over the walk records) against its plain PyTorch
      walk on the large bench knot
      at the main path's shapes (131,072 camera rays; a 262,144-ray pair
@@ -171,7 +173,35 @@ Phases (any failure raises and exits non-zero; nothing catches it):
   26. the reference tests' point scene at their own settings (20x20):
      MLT (depth 3, 400 mutations a pixel) within 5% of path's mean and
      SPPM (64 iterations, radius 0.25, depth 3) within 10%, with zero
-     overflows.
+     overflows;
+  27. the large bench scene with its camera translated and turned over the
+     shutter (bench CAMERA_MOTION): under path (256x256, 4 spp, depth 4)
+     B1 5 launches a pass, as the static scene's, an image other than
+     phase 5's, the crop checks; under bdpt (B1 28 a pass) the checks of
+     phase 22's render;
+  28. the kd-tree: K1 held bit-equal (t, triangle, b1, b2) to its plain
+     walk on the large knot's tree, on 131,072 camera rays and on a
+     262,144-ray pair launch with an any-hit half; both timed with CUDA
+     events beside the plain walk, with their bound from the node
+     records, leaf slots and prim indices the plain walk needed (each read
+     once) and its node visits and triangle tests; then the large bench
+     scene under Accelerator "kdtree" (K1 5 launches a pass, no BVH kernel): its
+     image within rtol 1e-3 / atol 1e-4 of phase 5's BVH image on 99% of
+     pixels, the means within 1%, the profile and the crop checks;
+  29. BASELINE config 3 (256x256, 16 spp, depth 5) under Camera
+     "environment" and under Camera "realistic" (the built-in double-Gauss
+     lens at an 8 mm aperture focused on the knot): the checks of phase
+     15's render (B1 6 a pass); the realistic image is black, as the
+     reference's is (its focus passes no ray: ROADMAP.md C); then the
+     realistic camera through bench.open_lens's lens (the table's own
+     rear gap and exit-pupil bounds that pass rays): a lit timed render
+     (B1 6 a pass), its profile, and the crop checks with a lit CPU crop;
+  30. the large bench scene with a subsurface knot (measured marble,
+     depth 5, 4 spp): B1 21 launches a pass (the probe chain's peels
+     included), finite and nonzero, the profile and the crop checks; and
+     the small scene with a kdsubsurface knot (64x64).
+  Each of phases 27 - 30 prints its render walls (the host clock after
+  torch.cuda.synchronize()), live rays, device kernels and busy share.
 Every profile records the device's activity only (kernels, copies and
 sets), read from the profiler's raw records; its top ops are the kernels'
 ops by name (`kernel_op`).
@@ -194,6 +224,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pbrt_tpu_torch.accel import instance as I
+from pbrt_tpu_torch.accel import kdtree as K
 from pbrt_tpu_torch.accel import native
 from pbrt_tpu_torch.accel import traverse as T
 from pbrt_tpu_torch import media as MD
@@ -208,6 +239,7 @@ from pbrt_tpu_torch.film import FilmState
 from pbrt_tpu_torch.render import Options, render, render_file, render_sampler_integrator, \
     sample_pixels
 from pbrt_tpu_torch.samplers import SamplerSpec, sample_2d, sample_dim
+from pbrt_tpu_torch.scene import bench as Bn
 from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
                                         build_instanced_bench_scene, build_ply_bench_scene,
                                         build_quadric_showcase, build_sphere_scene,
@@ -216,7 +248,7 @@ from pbrt_tpu_torch.scene.bench import (build_bench_scene, build_diff_scene,
                                         write_config2_scene, write_config4_scene,
                                         write_env_material_scene, write_floor_image,
                                         write_mlt_scene, write_sppm_scene, write_volpath_scene)
-from pbrt_tpu_torch.scene.build import load_scene
+from pbrt_tpu_torch.scene.build import build_scene, build_tables, load_scene
 from pbrt_tpu_torch.scene.intersect import _quadric_pass, kernel_bary
 
 # each kernel of the JSON record: the TPU kernel it replaces and its source
@@ -225,9 +257,12 @@ REPLACES = {"bvh_traverse": "pbrt_tpu/accel/pallas_traverse.py:1001",
             "bvh4_traverse": "pbrt_tpu/accel/pallas_traverse.py:1330",
             "bvh_traverse_block": "pbrt_tpu/accel/pallas_traverse.py:512",
             "bvh_traverse_packet": "pbrt_tpu/accel/pallas_traverse.py:257",
-            "instance_traverse": "pbrt_tpu/accel/pallas_instance.py:352"}
+            "instance_traverse": "pbrt_tpu/accel/pallas_instance.py:352",
+            # no pallas_call: the XLA lax.while_loop walk
+            "kdtree_traverse": "pbrt_tpu/accel/kdtree.py:90"}
 SOURCES = {"bvh4_traverse": "pbrt_tpu_torch/csrc/bvh4_traverse.cu",
-           "instance_traverse": "pbrt_tpu_torch/csrc/instance_traverse.cu"}
+           "instance_traverse": "pbrt_tpu_torch/csrc/instance_traverse.cu",
+           "kdtree_traverse": "pbrt_tpu_torch/csrc/kdtree_traverse.cu"}
 PEAK_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # fp32 operations per step, counted from the kernels' sources (each add, sub,
@@ -247,7 +282,7 @@ SAMPLER_KINDS = [("random", {}), ("stratified", dict(xsamples=4, ysamples=4)),
 # grid overflow at it (found on the card, PERF.md section 4)
 SPPM_RADIUS = 0.015
 PORT_KERNELS = ("walk_kernel", "traverse_kernel", "packet_kernel", "traverse4_kernel",
-                "instance_kernel")
+                "instance_kernel", "kd_kernel")
 
 
 def kernel_of(function):
@@ -258,7 +293,8 @@ def kernel_of(function):
         return None
     flags = tuple(a.strip() in ("true", "1", "(bool)1") for a in (m.group(2) or "").split(","))
     return {"traverse4_kernel": "bvh4_traverse", "instance_kernel": "instance_traverse",
-            "packet_kernel": "bvh_traverse_packet"}.get(m.group(1)) or {
+            "packet_kernel": "bvh_traverse_packet", "kd_kernel": "kdtree_traverse"}.get(
+                m.group(1)) or {
         (True, True, False): "bvh_traverse", (True, True, True): "bvh_traverse_all",
         (False, False, True): "bvh_traverse_packet"}.get(flags)
 
@@ -362,6 +398,7 @@ def world_bounded(cs, o, d, time):
 def zero_counts():
     """Set every kernel's launch count to 0."""
     T.traverse.launches = T.traverse4.launches = I.instance_traverse.launches = 0
+    K.intersect_kdtree.launches = 0
     T.traverse.bary_launches = dict.fromkeys(T.traverse.bary_launches, 0)
 
 
@@ -369,6 +406,7 @@ def read_counts():
     """-> {kernel name: launches since zero_counts()}."""
     return {"bvh_traverse": T.traverse.launches, "bvh4_traverse": T.traverse4.launches,
             "instance_traverse": I.instance_traverse.launches,
+            "kdtree_traverse": K.intersect_kdtree.launches,
             **{f"bvh_traverse_{v}": c for v, c in T.traverse.bary_launches.items()}}
 
 
@@ -514,6 +552,22 @@ def bound_ms(counts, n, ray_bytes, inst_bytes=0, enter_ops=0, fixed_bytes=0):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def kd_bound_ms(counts, n):
+    """bound_ms for K1 from the plain kd walk's counts on n rays: the bytes
+    it must move, each entry it needs read once (a node record's 12 bytes
+    of flags, split and child or prim range; a tested leaf slot's nine
+    vertex floats; a hit's prim index; the rays in, o, d, t_max and the
+    any-hit flag, and the hits out, t, triangle, b1 and b2) and its fp32
+    operations (about 8 a node visit, 60 a triangle test, counted from
+    csrc/kdtree_traverse.cu) -> (ms, "operations" or "bytes", bytes,
+    operations)."""
+    nodes, slots, indices = counts.touched()
+    byts = nodes * 12 + slots * 36 + indices * 4 + n * (24 + 4 + 1 + 16)
+    ops = counts.visits * 8 + counts.tri_tests * 60
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (byts, ops)
+
+
 def kernel_op(name):
     """A device kernel's name shortened to the op it computes: the functor
     or lambda of an elementwise kernel ("Mul", "add", "bitwise_and"), else
@@ -597,13 +651,14 @@ def render_instanced(animated, dev, card):
     return launches[1]
 
 
-def check_render(img, launches, want, label, res=256):
-    """A bench render: a finite, nonzero res x res image, and kernel
-    launches as in want ({kernel: count}; every other kernel none)."""
+def check_render(img, launches, want, label, res=256, lit=True):
+    """A bench render: a finite, nonzero (lit; else black) res x res
+    image, and kernel launches as in want ({kernel: count}; every other
+    kernel none)."""
     if tuple(img.shape) != (res, res, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"{label} render is not a finite {res}x{res} image")
-    if float(img.sum()) <= 0:
-        raise AssertionError(f"{label} render is black")
+    if (float(img.sum()) > 0) != lit:
+        raise AssertionError(f"{label} render is {'black' if lit else 'not black'}")
     want = {**dict.fromkeys(launches, 0), **want}
     if launches != want:
         raise AssertionError(f"{label} render launches {launches}, expected {want}")
@@ -869,14 +924,16 @@ def config4_stages(path, copt, dev):
           + "; ".join(rows))
 
 
-def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None):
+def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None,
+                      lit=True):
     """Phases 15, 16 and 18 - 22: one scene file end to end on the card,
     by its integrator (render): `timed` renders after a warm-up, each
     finite and nonzero with the kernel launches want ({kernel: launches a
     pass}; no other kernel); one render under torch.profiler; the crop
     bitwise equal over two renders and close to the CPU crop on >= 99% of
     its pixels. small_path, where given, is the scene at a lower sample
-    count for the profiled render and the crops.
+    count for the profiled render and the crops; lit=False: the images
+    are black (the realistic camera's).
     In scenes with a grid medium, each render's tracking-loop host reads
     are printed. -> the timed scene."""
     t0 = time.time()
@@ -905,7 +962,8 @@ def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_pa
         walls.append(time.time() - t0)
         reads.append(MD.HOST_READS["blocks"])
         launches = read_counts()
-        check_render(img, launches, {k: v * passes for k, v in want.items()}, label, res=res)
+        check_render(img, launches, {k: v * passes for k, v in want.items()}, label, res=res,
+                     lit=lit)
     wall = sorted(walls)[len(walls) // 2]
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
     per_pass = ", ".join(f"{k} {launches[k] // passes}" for k in want)
@@ -1049,17 +1107,21 @@ def timed_render(label, cs, want, card, res=256):
     torch.cuda.synchronize()
     wall = time.time() - t0
     check_render(img, read_counts(), {k: v * passes for k, v in want.items()}, label, res=res)
+    live = sum(cnt.get(k, 0) for k in ("camera_rays", "shadow_rays", "bounce_rays"))
     print(f"{label} render: {wall:.3f} s, {passes} passes, launches "
           + ", ".join(f"{k} {v * passes} ({v} a pass)" for k, v in want.items())
-          + f", counters {cnt}, mean {float(img.mean()):.6f}  [{card}]")
+          + f", {live} live rays ({live / wall / 1e6:.3f} M/s), counters {cnt}, mean "
+          f"{float(img.mean()):.6f}  [{card}]")
     return img, cnt, passes, wall
 
 
-def profiled(label, cs, wall, want, card):
+def profiled(label, cs, wall, want, card, warm=True):
     """A render of cs, a shorter run of the timed scene, under
     torch.profiler: its device kernels, device time and busy share of
-    `wall`, the timed render's wall scaled to its passes."""
-    render(cs, Options())   # warm-up
+    `wall`, the timed render's wall scaled to its passes; warm=False where
+    cs has just been rendered."""
+    if warm:
+        render(cs, Options())
     t0 = time.time()
     busy, n_kern, top, mine = profile_render(cs, Options())
     print(f"{label} render under torch.profiler ({time.time() - t0:.1f} s): {n_kern} device "
@@ -1223,6 +1285,158 @@ def sppm_mlt_calibration(dev, card):
             raise AssertionError(f"point: {kind}'s mean {means[kind]} is {rel:.4f} off path's")
 
 
+def variant_crops(label, desc, tables, dev, bound=0.99):
+    """Phase 5's crop checks on a bench variant whose host tables are built
+    once: the crop twice on the card, once on the CPU."""
+    crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
+    a, b, c = (render(build_scene(desc, crop, where, tables=tables), crop)[0]
+               for where in (dev, dev, "cpu"))
+    check_crop(a, b, c, label, bound)
+
+
+def moving_camera(dev, card, still):
+    """Phase 27: the large bench scene with a moving camera under path and
+    bdpt; still: phase 5's image of the static camera."""
+    desc = Bn.bench_variant_description(True, motion=Bn.CAMERA_MOTION)
+    tables = build_tables(desc)
+    cs = build_scene(desc, None, dev, tables=tables)
+    want = {"bvh_traverse": 5}
+    img, _, _, wall = timed_render("moving camera (path)", cs, want, card)
+    moved = 1.0 - close_share(img, still)
+    if moved < 0.05:
+        raise AssertionError(f"the moving camera's image is the static one's ({moved:.4f} "
+                             "of pixels differ)")
+    print(f"moving camera (path): {moved:.4f} of the pixels differ from the static camera's")
+    profiled("moving camera (path)", cs, wall, want, card, warm=False)
+    variant_crops("moving camera (path)", desc, tables, dev)
+    with tempfile.TemporaryDirectory(prefix="moving_") as tmp:
+        full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
+        os.mkdir(full)
+        os.mkdir(low)
+        scene_file_render("moving camera (bdpt)", write_bdpt_scene(full, motion=Bn.CAMERA_MOTION),
+                          256, (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 28}, dev, card,
+                          timed=1, small_path=write_bdpt_scene(low, spp=1,
+                                                               motion=Bn.CAMERA_MOTION))
+
+
+def kd_phase(dev, card, bvh_img):
+    """Phase 28: K1 against its plain walk, then the large bench scene under
+    the kd-tree -> (K1 launches of the render, max |dt| over both launches,
+    K1 ms and plain ms on the pair launch, its bound (ms, by))."""
+    desc = Bn.bench_variant_description(True, accelerator="kdtree")
+    t0 = time.time()
+    tables = build_tables(desc)
+    built = time.time() - t0
+    cs = build_scene(desc, None, dev, tables=tables)
+    kd = cs.data.kd
+    print(f"kd-tree of the large knot built in {built:.2f} s (with the BVH and the scene's "
+          f"tables): {kd.n_nodes} nodes, {kd.prim_indices.shape[0]} leaf prims")
+    o, d, _ = camera_launch(cs, dev)
+    n_cam = o.shape[0]
+    cam = [o, d, torch.full((n_cam,), float("inf"), device=dev),
+           torch.zeros(n_cam, dtype=torch.uint8, device=dev)]
+    out, err = {}, 0.0
+    for name, rays in (("camera", cam), ("pair", pair_launch(n_cam, dev))):
+        before = K.intersect_kdtree.launches
+        got = K.intersect_kdtree(kd, *rays)
+        torch.cuda.synchronize()
+        if K.intersect_kdtree.launches != before + 1:
+            raise AssertionError("the K1 launch counter did not advance")
+        counts = K.KdCounts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = K.intersect_kdtree_plain(kd, *rays, counts)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end)
+        for what, a, b in zip(("t", "triangle", "b1", "b2"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K1 and its plain walk differ in {what} ({name} launch)")
+        hit = got[1] >= 0
+        if not bool(hit.any()):
+            raise AssertionError(f"no ray of the {name} launch hit the knot")
+        err = max(err, float(torch.where(got[0] == want[0], 0.0, (got[0] - want[0]).abs()).max()))
+        ms = min(cuda_ms(lambda: K.intersect_kdtree(kd, *rays), 10) for _ in range(2))
+        n = rays[0].shape[0]
+        bound = kd_bound_ms(counts, n)
+        touched = counts.touched()
+        print(f"K1 {name} launch, {n} rays: bit-equal to the plain walk ({float(hit.float().mean()):.4f}"
+              f" hit, max |dt| {err}); K1 {ms:.3f} ms, plain {plain:.3f} ms; "
+              f"{counts.visits / n:.2f} node visits and {counts.tri_tests / n:.2f} triangle tests "
+              f"a ray; {touched[0]} node records, {touched[1]} leaf slots and {touched[2]} prim "
+              f"indices needed; bound {bound[0]:.5f} ms ({bound[1]}: {bound[2]} bytes, "
+              f"{bound[3]} operations)  [{card}]")
+        out[name] = (ms, plain, bound)
+    want = {"kdtree_traverse": 5}
+    img, _, passes, wall = timed_render("kd-tree", cs, want, card)
+    launches = read_counts()["kdtree_traverse"]
+    near = close_share(img, bvh_img)
+    means = float(img.mean()), float(bvh_img.mean())
+    if near < 0.99 or abs(means[0] - means[1]) > 0.01 * means[1]:
+        raise AssertionError(f"kd-tree image vs the BVH's: {near:.4f} of pixels close, means "
+                             f"{means}")
+    print(f"kd-tree image vs the BVH's (phase 5): {near:.4f} of pixels within rtol 1e-3 / atol "
+          f"1e-4, means {means[0]:.6f} / {means[1]:.6f}")
+    profiled("kd-tree", cs, wall, want, card, warm=False)
+    variant_crops("kd-tree", desc, tables, dev)
+    return launches, err, out["pair"][0], out["pair"][1], out["pair"][2][:2]
+
+
+def opened_lens_render(cs, small_path, dev, card):
+    """Phase 29's realistic camera through bench.open_lens's lens (its rays
+    reach the scene): the timed and profiled render of cs so opened, lit,
+    and the crop checks on small_path so opened, the CPU's crop lit."""
+    label = "realistic camera (opened lens)"
+    cs = Bn.open_realistic_camera(cs)
+    want = {"bvh_traverse": 6}
+    _, _, _, wall = timed_render(label, cs, want, card)
+    profiled(label, cs, wall, want, card, warm=False)
+    crop = Options(crop_window=(0.5, 0.625, 0.5, 0.625))
+    a, b, c = (render(Bn.open_realistic_camera(load_scene(small_path, crop, where)), crop)[0]
+               for where in (dev, dev, "cpu"))
+    if not float(c.sum()) > 0:
+        raise AssertionError(f"the {label} CPU crop is black")
+    check_crop(a, b, c, label)
+
+
+def camera_renders(dev, card):
+    """Phase 29: config 3 under the environment and the realistic camera
+    (black, as the reference's), then under the realistic camera through
+    an opened lens."""
+    for label, camera in (("environment camera", Bn.ENV_CAMERA),
+                          ("realistic camera", Bn.REALISTIC_CAMERA)):
+        with tempfile.TemporaryDirectory(prefix="camera_") as tmp:
+            full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
+            os.mkdir(full)
+            os.mkdir(low)
+            cs = scene_file_render(
+                label, write_env_material_scene(full, camera=camera), 256,
+                (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 6}, dev, card, timed=1,
+                small_path=write_env_material_scene(low, spp=4, camera=camera),
+                lit=camera == Bn.ENV_CAMERA)
+            if camera == Bn.REALISTIC_CAMERA:
+                print(f"realistic camera: rear gap {cs.camera.lens_elements[-1, 1]:.6f} m after "
+                      "the focus; every ray weighs 0 (the reference's focus passes no ray)")
+                opened_lens_render(cs, os.path.join(low, "scene.pbrt"), dev, card)
+
+
+def subsurface_renders(dev, card):
+    """Phase 30: the large bench scene with a subsurface knot, and the small
+    one with a kdsubsurface knot."""
+    depth5 = 'Integrator "path" "integer maxdepth" 5'
+    desc = Bn.bench_variant_description(True, knot_material=Bn.SUBSURFACE_KNOT,
+                                        integrator=depth5)
+    tables = build_tables(desc)
+    cs = build_scene(desc, None, dev, tables=tables)
+    want = {"bvh_traverse": 21}
+    _, _, _, wall = timed_render("subsurface", cs, want, card)
+    profiled("subsurface", cs, wall, want, card, warm=False)
+    variant_crops("subsurface", desc, tables, dev)
+    small = build_scene(Bn.bench_variant_description(False, knot_material=Bn.KDSUBSURFACE_KNOT,
+                                                     integrator=depth5), None, dev)
+    timed_render("kdsubsurface (64x64)", small, want, card, res=64)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -1240,8 +1454,8 @@ def main():
           torch.cuda.get_device_name(0))
 
     # ---- 2: build ----
-    for name, sec in native.load_all(["bvh_traverse", "bvh4_traverse",
-                                      "instance_traverse"]).items():
+    for name, sec in native.load_all(["bvh_traverse", "bvh4_traverse", "instance_traverse",
+                                      "kdtree_traverse"]).items():
         print(f"build: {name}.cu in {sec:.2f} s; " + "; ".join(
             f"{k}: {v.get('registers')} registers, {v.get('spill_stores')} / "
             f"{v.get('spill_loads')} bytes spill stores / loads, {v.get('stack_frame')} bytes "
@@ -1308,6 +1522,7 @@ def main():
     wall = time.time() - t0
     launches = read_counts()["bvh_traverse"]
     check_render(img, read_counts(), {"bvh_traverse": 5 * passes}, "large")
+    large_img = img   # phases 27 and 28 hold their variants against it
     samples = 256 * 256 * cs.sampler.rounded_spp()
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
     print(f"large render: {wall:.3f} s, {passes} passes, {launches} kernel launches, "
@@ -1558,6 +1773,16 @@ def main():
     sppm_mlt_calibration(dev, card)
 
     lap("phases 24, 25, 26")
+    # ---- 27: a moving camera; 28: the kd-tree; 29: the environment and realistic
+    # cameras; 30: subsurface ----
+    moving_camera(dev, card, large_img)
+    lap("phase 27")
+    kd_record = kd_phase(dev, card, large_img)
+    lap("phase 28")
+    camera_renders(dev, card)
+    lap("phase 29")
+    subsurface_renders(dev, card)
+    lap("phase 30")
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "
         f"box tests, {c.tri_tests / n_pair:.2f} triangle tests, stack at most {c.max_stack}"
@@ -1590,7 +1815,9 @@ def main():
                              p_time["pair"]["bvh_traverse_all"], p_time["pair"]["plain_all"]),
         "bvh4_traverse": (ply_launches["bvh4_traverse"], errs["bvh4_traverse"],
                           p_time["pair"]["bvh4_traverse"], p_time["pair"]["plain4"]),
+        "kdtree_traverse": kd_record[:4],
     }
+    bounds["kdtree_traverse"] = kd_record[4]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": SOURCES.get(name, "pbrt_tpu_torch/csrc/bvh_traverse.cu"),

@@ -31,6 +31,7 @@ import torch
 from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.accel.traverse import (GROUP, LEAF_TRIS, REC_FLOATS, WalkCounts, _call, _check,
                                            _iters, _Rays, leaf_blocks, node_depths, walk_records)
+from pbrt_tpu_torch.core.transform import quat_rows
 
 STACK = 96           # per-ray stack entries, in the kernel and the plain walk
 RESTORE = -2         # stack sentinel: leave the current instance
@@ -339,9 +340,7 @@ def _walk_matrix(rows, tcl, trs: bool):
     q = [w0 * q0[j] + w1 * q1[j] for j in range(4)]
     qn = torch.rsqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3])
     x, y, z, w = (q[j] * qn for j in range(4))
-    R9 = [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
-          2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
-          2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]
+    R9 = quat_rows(x, y, z, w)
     Sv = [S0[j] + tcl * (S1[j] - S0[j]) for j in range(9)]
     M = []
     for r in range(3):

@@ -1,6 +1,6 @@
-"""Build-at-first-use for the port's native code: the C++ BVH builder
-(csrc/bvh_builder.cpp, a copy of the reference's, built with g++) and the
-CUDA kernels of csrc/ (nvcc).
+"""Build-at-first-use for the port's native code: the C++ BVH and kd-tree
+builders (csrc/bvh_builder.cpp and csrc/kdtree_builder.cpp, copies of the
+reference's, built with g++) and the CUDA kernels of csrc/ (nvcc).
 
 All land in build/pbrt_tpu_torch/ beside the package and load through
 ctypes with a plain C interface. A build failure raises: there is no
@@ -20,14 +20,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO / "build" / "pbrt_tpu_torch"
 CSRC = REPO / "pbrt_tpu_torch" / "csrc"
-BVH_BUILDER_SRC = CSRC / "bvh_builder.cpp"
+HOST_SOURCES = {name: CSRC / f"{name}.cpp" for name in ("bvh_builder", "kdtree_builder")}
 CUDA_SOURCES = {name: CSRC / f"{name}.cu"
-                for name in ("bvh_traverse", "bvh4_traverse", "instance_traverse")}
+                for name in ("bvh_traverse", "bvh4_traverse", "instance_traverse",
+                             "kdtree_traverse")}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOCKS = {name: threading.Lock() for name in ("bvh_builder", *CUDA_SOURCES)}
+_LOCKS = {name: threading.Lock() for name in (*HOST_SOURCES, *CUDA_SOURCES)}
 _LIBS: dict = {}
 
 
@@ -49,15 +50,16 @@ def _compile(cmd_head, src: Path, so: Path, timeout: float) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Load (building if needed) 'bvh_builder' or a kernel of CUDA_SOURCES."""
+    """Load (building if needed) a builder of HOST_SOURCES or a kernel of
+    CUDA_SOURCES."""
     if name not in _LOCKS:
         raise KeyError(name)
     with _LOCKS[name]:
         if name not in _LIBS:
             so = BUILD_DIR / f"lib{name}.so"
-            if name == "bvh_builder":
+            if name in HOST_SOURCES:
                 _compile(["g++", "-O3", "-std=c++17", "-shared", "-fPIC"],
-                         BVH_BUILDER_SRC, so, 240)
+                         HOST_SOURCES[name], so, 240)
             else:
                 nvcc = os.environ.get("NVCC", "/usr/local/cuda/bin/nvcc")
                 if not os.path.exists(nvcc):

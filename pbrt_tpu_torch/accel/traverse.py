@@ -334,11 +334,11 @@ def tpu_table_bytes(kb: KernelBVH) -> int:
     return (-(-M // 8) + -(-M // 32) + L) * 128 * 4
 
 
-def far_miss_rays(kb, n: int, device, *others):
-    """(o, d) for rays that miss the root box of kb and of each of others
-    (anything with world bounds wlo/whi): they retire dead lanes."""
-    wlo = np.minimum.reduce([b.wlo for b in (kb,) + others])
-    whi = np.maximum.reduce([b.whi for b in (kb,) + others])
+def far_miss_rays(boxes, n: int, device):
+    """(o, d) for rays that miss every box of boxes ((lo, hi) [3] pairs,
+    the root boxes of the walks): they retire dead lanes."""
+    wlo = np.minimum.reduce([lo for lo, _ in boxes])
+    whi = np.maximum.reduce([hi for _, hi in boxes])
     far = whi + (whi - wlo) + 1.0
     o = torch.as_tensor(far.astype(np.float32), device=device).expand(n, 3)
     d = torch.tensor([0.0, 0.0, 1.0], device=device).expand(n, 3)

@@ -41,7 +41,7 @@ from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.math import dot, normalize
 from pbrt_tpu_torch.film import FilmState, add_samples, add_splats, develop
 from pbrt_tpu_torch.filters import build_table
-from pbrt_tpu_torch.integrators.common import camera_rays, infinite_pdf_for_dir
+from pbrt_tpu_torch.integrators.common import camera_dims, camera_rays, infinite_pdf_for_dir
 from pbrt_tpu_torch.integrators.path import COUNTERS
 from pbrt_tpu_torch.materials import bsdf as B
 from pbrt_tpu_torch.materials import compute_lobes
@@ -510,8 +510,7 @@ def _bdpt_sample(cs, px, py, sidx, D, strategies=STRATEGIES, st_filter=None, sam
         rays, _, p_film = camera_rays(cs, px, py, sidx)
     else:
         p_film = p_film_override
-        u_lens = dim2(2) if cs.camera.lens_radius > 0.0 else None
-        rays, _ = generate_rays(cs.camera, p_film, False, u_lens)
+        rays, _ = generate_rays(cs.camera, p_film, False, *camera_dims(cs.camera, dim1, dim2))
     cam_o = rays.o
     # animated instances are traced at the camera sample's time
     time = dim1(4) if flags.n_instances > 0 else None

@@ -20,7 +20,7 @@ from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.sampling import power_heuristic
 from pbrt_tpu_torch.lights.distrib import spatial_pdf, spatial_sample_discrete
 from pbrt_tpu_torch.materials import bsdf as B
-from pbrt_tpu_torch.samplers import sample_2d
+from pbrt_tpu_torch.samplers import sample_2d, sample_dim
 from pbrt_tpu_torch.scene.intersect import intersect_p
 
 CAMERA_DIMS = 5
@@ -31,6 +31,19 @@ def bounce_base(bounce: int) -> int:
     return CAMERA_DIMS + BOUNCE_DIMS * bounce
 
 
+def uses_lens(camera) -> bool:
+    return camera.lens_radius > 0.0 or camera.kind == "realistic"
+
+
+def camera_dims(camera, dim1, dim2):
+    """The lens pair (dims 2, 3), where the camera has a lens, and the time
+    (dim 4), where it moves -> (u_lens [N,2] or None, u_time [N] or None);
+    dim1(d) draws dimension d, dim2(d) the pair d, d + 1."""
+    u_lens = dim2(2) if uses_lens(camera) else None
+    u_time = dim1(4) if camera.motion is not None else None
+    return u_lens, u_time
+
+
 def camera_rays(cs, px, py, sample_idx, spp_for_diff=None):
     """Primary rays for pixels (px, py) at sample_idx, through the lens
     where the camera has one -> (Rays, weight, p_film). spp_for_diff:
@@ -39,10 +52,10 @@ def camera_rays(cs, px, py, sample_idx, spp_for_diff=None):
     u_film = sample_2d(cs.sampler, px, py, sample_idx, 0)
     p_film = torch.stack([px.to(torch.float32) + u_film[:, 0],
                           py.to(torch.float32) + u_film[:, 1]], -1)
-    # the lens pair (dims 2, 3) only where the camera has a lens
-    u_lens = sample_2d(cs.sampler, px, py, sample_idx, 2) if cs.camera.lens_radius > 0.0 \
-        else None
-    rays, w = generate_rays(cs.camera, p_film, spp_for_diff is not None, u_lens)
+    u_lens, u_time = camera_dims(cs.camera,
+                                 lambda dim: sample_dim(cs.sampler, px, py, sample_idx, dim),
+                                 lambda dim: sample_2d(cs.sampler, px, py, sample_idx, dim))
+    rays, w = generate_rays(cs.camera, p_film, spp_for_diff is not None, u_lens, u_time)
     if spp_for_diff is not None and spp_for_diff > 1:
         # the reference's float32 1/sqrt(spp)
         rays = rays.scaled_differentials(float(np.float32(1.0) / np.sqrt(np.float32(spp_for_diff))))

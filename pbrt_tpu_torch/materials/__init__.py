@@ -1,5 +1,4 @@
-"""Material tables -> lobes (port of pbrt_tpu/materials/__init__.py for
-every material kind but the subsurface ones).
+"""Material tables -> lobes (port of pbrt_tpu/materials/__init__.py).
 
 A material is a row of a table: its kind, a constant or a texture id per
 slot, and misc values. Slot layout of `const` and `tex` (the reference's):
@@ -14,7 +13,11 @@ the one-sample estimator of the reference's lobe-scaled mix) and writes
 each kind's lobe parameters under its mask. Only the kinds the table holds
 (`kinds`, static) and the lobe families they populate (`fams`) issue
 tensor ops; a slot no material textures issues no texture op.
-`subsurface` and `kdsubsurface` raise NotImplementedError.
+
+`subsurface` and `kdsubsurface` are glass-like boundaries (eta 1.33 by
+default) in the kind table; `compile_subsurface` gives their BSSRDF rows,
+which the path integrator reads (materials/bssrdf.py), and compute_lobes
+flags their lanes (`Lobes.sss_flag`) where the table holds them.
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ def compile_materials(decls, cwd="."):
     tex [M,10] texture id per slot (-1: its constant), child [M,2] mix
     children, fourier tables read for fourier.fourier_tables). A kind the
     reference does not know renders as matte, as there; a fourier table
-    that cannot be read is logged and its material becomes matte Kd 0.5."""
+    that cannot be read is logged and its material becomes matte Kd 0.5;
+    a subsurface kind is a glass row."""
     from pbrt_tpu_torch.materials.fourier import read_bsdf_file
     M = len(decls)
     kind = np.zeros(M, np.int32)
@@ -72,8 +76,9 @@ def compile_materials(decls, cwd="."):
     tables = []
     for i, d in enumerate(decls):
         k = KIND_IDS.get(d.kind, M_MATTE)
-        if k in (M_SUBSURFACE, M_KDSUBSURFACE):
-            raise NotImplementedError(f"material {d.kind!r} is not ported")
+        sss = k in (M_SUBSURFACE, M_KDSUBSURFACE)
+        if sss:
+            k = M_GLASS
         kind[i] = k
         ps = d.params
         defaults = _DEFAULTS.get(k, {})
@@ -85,7 +90,7 @@ def compile_materials(decls, cwd="."):
                 const[i, s] = ps.find_one_rgb(name, [0, 0, 0])
             elif dv is not None:
                 const[i, s] = dv
-        misc[i, 0] = ps.find_one_float("eta", ps.find_one_float("index", 1.5))
+        misc[i, 0] = ps.find_one_float("eta", 1.33 if sss else ps.find_one_float("index", 1.5))
         misc[i, 1] = 1.0 if ps.find_one_bool("remaproughness", True) else 0.0
         if k == M_METAL:
             const[i, 0] = ps.find_one_rgb("eta", COPPER_ETA)
@@ -111,6 +116,48 @@ def compile_materials(decls, cwd="."):
                 misc[i, 0] = t["eta"]
                 tables.append(t)
     return kind, const, misc, tex, child, tables
+
+
+def compile_subsurface(decls, misc):
+    """Host BSSRDF rows of the subsurface materials (the reference's
+    compile_materials, :157-193), others zero -> (sss [M,7]: flag, sigma_t
+    rgb, albedo rgb; prof, cdf [M,3,64] the profile rows at each channel's
+    albedo; rhoeff [M,3]). misc: compile_materials' (its eta column).
+    subsurface reads sigma_a and sigma_prime_s (or sigma_s), or a named
+    medium's, times "scale"; kdsubsurface the albedo whose effective
+    albedo is Kd and sigma_t = 1 / (mfp scale)."""
+    from pbrt_tpu_torch.materials import bssrdf as SSS
+    M = len(decls)
+    sss = np.zeros((M, 7), np.float32)
+    prof = np.zeros((M, 3, SSS.N_RADII), np.float32)
+    cdf = np.zeros((M, 3, SSS.N_RADII), np.float32)
+    rhoeff = np.zeros((M, 3), np.float32)
+    for i, d in enumerate(decls):
+        k = KIND_IDS.get(d.kind, M_MATTE)
+        if k not in (M_SUBSURFACE, M_KDSUBSURFACE):
+            continue
+        ps = d.params
+        scale = ps.find_one_float("scale", 1.0)
+        if k == M_SUBSURFACE:
+            sa = np.asarray(ps.find_one_rgb("sigma_a", [0.0011, 0.0024, 0.014]), np.float32)
+            sp = np.asarray(ps.find_one_rgb("sigma_prime_s",
+                                            ps.find_one_rgb("sigma_s", [2.55, 3.21, 3.77])),
+                            np.float32)
+            name = ps.find_one_string("name", "")
+            got = SSS.get_medium_scattering_properties(name) if name else None
+            if got is not None:
+                sa, sp = got
+            st, rho = SSS.subsurface_sigmas(sa, sp, scale)
+        else:
+            st, rho = SSS.kdsubsurface_remap(ps.find_one_rgb("Kd", [0.5] * 3),
+                                             ps.find_one_float("mfp", 1.0) * scale)
+        sss[i, 0] = 1.0
+        sss[i, 1:4] = np.maximum(st, 1e-6)
+        sss[i, 4:7] = rho
+        prof[i], cdf[i], rhoeff[i] = SSS.dense_channel_rows(
+            sss[i, 1:4], rho, g=float(ps.find_one_float("g", 0.0)),
+            eta=float(misc[i, 0] or 1.33))
+    return sss, prof, cdf, rhoeff
 
 
 def material_families(decls):
@@ -284,6 +331,8 @@ def compute_lobes(mats, tex, mat_id, uv, p, duv=None, has_tex_slot=(), tex_kinds
             lb.spec_fresnel = torch.where(has[M_MIRROR], B.SF_NOOP, B.SF_DIELECTRIC)
     if M_FOURIER in has:
         lb.fourier_id = torch.where(has[M_FOURIER], misc[:, 2].to(torch.int64), -1)
+    if mats.sss is not None:
+        lb.sss_flag = mats.sss[mat_id, 0] > 0.5
     eta = misc[:, 0]
     lb.eta = torch.where(eta > 0, eta, 1.5)
     return lb

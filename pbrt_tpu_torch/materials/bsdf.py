@@ -66,6 +66,7 @@ class Lobes:
     spec_t: T = None           # [N,3] specular transmission weight
     spec_fresnel: T = None     # [N] int SF_*; None: every lane dielectric
     fourier_id: T = None       # [N] int fourier table id (-1 none); None: no table
+    sss_flag: T = None         # [N] bool a subsurface boundary; None: no BSSRDF in the scene
 
 
 @dataclasses.dataclass

@@ -8,9 +8,8 @@ that names one holds its id. Named media and the medium interface of
 the graphics state are recorded on the camera, every shape and every
 light, by name, as the reference records them. As in the reference,
 TransformTimes is stored and never read, an Option does nothing, a Film
-of any kind is the image film, and any accelerator but the kd-tree
-(which raises NotImplementedError) builds the BVH. The shapes are those
-of shapes/factory.py."""
+of any kind is the image film, and any accelerator but "kdtree" builds
+the BVH. The shapes are those of shapes/factory.py."""
 from __future__ import annotations
 
 import copy
@@ -236,8 +235,6 @@ class Api:
         self.scene.integrator_params = ps
 
     def accelerator(self, kind, ps):
-        if kind == "kdtree":
-            raise NotImplementedError(f"accelerator {kind!r} is not ported")
         self.scene.accelerator_kind = kind
         self.scene.accelerator_params = ps
 

@@ -69,6 +69,21 @@ thin homogeneous fog, and the knot in a box of material "none" (a medium
 interface) that holds a 32^3 grid medium of seeded smooth density with
 g = 0.3; 4 spp. Its "homogeneous" variant has the fog alone (no box).
 
+The bench variants (bench_variant_description) keep the bench scene and
+change one thing each: a camera that moves over the shutter
+(CAMERA_MOTION: translated and turned by ActiveTransform EndTime), the
+world under `Accelerator "kdtree"`, or the knot's material (SUBSURFACE_KNOT:
+the measured marble, its coefficients scaled by 20 so that its mean free
+path, about 0.02 units, is small beside the knot's 0.3-unit tube;
+KDSUBSURFACE_KNOT: a Kd and mean free path of the same scale). Config 3
+takes another camera through write_env_material_scene's `camera`
+(ENV_CAMERA, REALISTIC_CAMERA: the built-in double-Gauss lens at an 8 mm
+aperture focused at the knot, 5.196 units away). The kd-tree calibration
+scene (kdtree_calibration_scene) is the 36-triangle knot scene of the
+reference's calibration under the kd-tree, its floor a 6x6 grid of quads,
+so that the world holds 110 triangles, over the 64 from which the
+reference builds an accelerator.
+
 The PLY bench scene keeps the large scene's text, resolution, sampler and
 depth, and reads its knot, 448x112 (100,352 triangles, with normals and
 uv), from a binary little-endian PLY file written at run time; its
@@ -79,11 +94,13 @@ them with its B5 kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 
 from pbrt_tpu_torch.accel.traverse import tpu_table_bytes
+from pbrt_tpu_torch.cameras import realistic as R
 from pbrt_tpu_torch.scene.api import Api, ShapeRecord
 from pbrt_tpu_torch.scene.build import build_scene, load_scene
 from pbrt_tpu_torch.scene.parser import parse_string
@@ -138,6 +155,86 @@ def bench_description(large: bool = False):
 
 def build_bench_scene(large: bool = False, device="cuda", options=None):
     return build_scene(bench_description(large), options, device)
+
+
+CAMERA_MOTION = "Translate 0.25 0.1 0\nRotate 4 0 1 0"
+SUBSURFACE_KNOT = 'Material "subsurface" "string name" "Marble" "float scale" 20'
+KDSUBSURFACE_KNOT = 'Material "kdsubsurface" "rgb Kd" [0.8 0.55 0.4] "float mfp" 0.02'
+ENV_CAMERA = 'Camera "environment"'
+REALISTIC_CAMERA = ('Camera "realistic" "float aperturediameter" 8 '
+                    '"float focusdistance" 5.196')
+_LOOKAT = "LookAt 3 3 3  0 0 0  0 1 0\n"
+
+
+def scene_variant(text, camera=None, motion=None, accelerator=None, knot_material=None,
+                  knot_line='Material "matte" "rgb Kd" [0.6 0.4 0.3]', integrator=None):
+    """A scene text of the bench family with one thing changed: the Camera
+    line, the camera's end transform (motion: transform lines applied at
+    the shutter's end after the LookAt), the Accelerator, or the knot's
+    material (in place of knot_line); integrator, where given, replaces
+    the bench's Integrator line. Each line it changes must be in the text
+    once."""
+    def once(text, target, new):
+        if text.count(target) != 1:
+            raise ValueError(f"scene_variant: {target!r} is in the text "
+                             f"{text.count(target)} times, not once")
+        return text.replace(target, new)
+
+    if integrator:
+        text = once(text, 'Integrator "path" "integer maxdepth" 4', integrator)
+    if camera:
+        text = once(text, 'Camera "perspective" "float fov" 40', camera)
+    if motion:
+        text = once(text, _LOOKAT, _LOOKAT + "ActiveTransform EndTime\n" + motion
+                    + "\nActiveTransform All\n")
+    if accelerator:
+        text = once(text, "WorldBegin", f'Accelerator "{accelerator}"\nWorldBegin')
+    if knot_material:
+        text = once(text, knot_line, knot_material)
+    return text
+
+
+def open_lens(load_lens_system=R.load_lens_system, trace_np=R._trace_np,
+              normalize_np=R._normalize_np):
+    """REALISTIC_CAMERA's lens opened: the built-in lens at its table's own
+    rear gap (72.228 mm; the reference's focus collapses the gap, so its
+    lens passes no ray) and exit-pupil bounds found as focus_lens_system
+    finds them, with load_lens_system, the float32 trace and normalize of
+    cameras/realistic.py (or another package's, to compare the two) ->
+    (lens [n,4], bounds [32,4] f32)."""
+    lens = load_lens_system({"aperturediameter": [8.0]})
+    rear_ap, rear_z = float(lens[-1, 3]), -float(lens[-1, 1])
+    bounds = np.zeros((32, 4), np.float32)
+    rng = np.random.default_rng(0)
+    for b in range(32):
+        fx = rng.uniform(b / 32 * 0.0175, (b + 1) / 32 * 0.0175, 512)
+        lx = rng.uniform(-1.5 * rear_ap, 1.5 * rear_ap, (512, 2))
+        o = np.stack([fx, np.zeros(512), np.zeros(512)], -1)
+        d = np.stack([lx[:, 0] - fx, lx[:, 1], np.full(512, rear_z)], -1)
+        sel = lx[trace_np(lens, o, normalize_np(d))[0]]
+        pad = 0.1 * rear_ap
+        bounds[b] = [sel[:, 0].min() - pad, sel[:, 0].max() + pad,
+                     sel[:, 1].min() - pad, sel[:, 1].max() + pad]
+    return lens, bounds
+
+
+def open_realistic_camera(cs):
+    """A compiled scene under REALISTIC_CAMERA -> the same scene through
+    open_lens's lens, whose rays reach the scene."""
+    lens, bounds = open_lens()
+    return dataclasses.replace(cs, camera=dataclasses.replace(
+        cs.camera, lens_elements=lens, exit_pupil=bounds))
+
+
+def bench_variant_description(large: bool = True, **variant):
+    """SceneDescription of a bench variant (see scene_variant)."""
+    api = Api()
+    parse_string(scene_variant(scene_text(large), **variant), api)
+    n_u, n_v = KNOT[large]
+    api.scene.shapes.append(ShapeRecord("trianglemesh",
+                                        mesh=make_knot_mesh(n_u, n_v, scale=0.45),
+                                        material=KNOT_MATERIAL))
+    return api.scene
 
 
 KNOT_MARBLE = ('Texture "knot" "color" "marble" "float scale" 4 "float variation" 0.6\n'
@@ -528,10 +625,12 @@ def write_sky_exr(path, size=(512, 256), seed=0):
     write_exr(path, img.astype(np.float32))
 
 
-def write_env_material_scene(dirname, large=True, res=None, spp=16, integrator=None):
+def write_env_material_scene(dirname, large=True, res=None, spp=16, integrator=None,
+                             camera=None):
     """Write BASELINE config 3 (scene.pbrt, knot.ply, sky.exr) into dirname
     -> the scene file's path; res defaults to 256 (large) or 64;
-    integrator: another Integrator line than path at depth 5."""
+    integrator: another Integrator line than path at depth 5; camera:
+    another Camera line."""
     write_sky_exr(os.path.join(dirname, "sky.exr"))
     write_knot_ply(os.path.join(dirname, "knot.ply"), *KNOT[large])
     path = os.path.join(dirname, "scene.pbrt")
@@ -539,6 +638,7 @@ def write_env_material_scene(dirname, large=True, res=None, spp=16, integrator=N
         "{SPP}", str(spp))
     if integrator:
         text = text.replace('Integrator "path" "integer maxdepth" 5', integrator)
+    text = scene_variant(text, camera=camera)
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -778,18 +878,18 @@ def write_volpath_scene(dirname, large=True, res=None, spp=4, grid=True, knot=No
                             knot or KNOT[large])
 
 
-def write_bdpt_scene(dirname, large=True, res=None, spp=4, integrator=None):
+def write_bdpt_scene(dirname, large=True, res=None, spp=4, integrator=None, **variant):
     """Write the bench scene (its knot read from knot.ply) under
     Integrator "bdpt" at depth 4, or under the Integrator line
     `integrator`, into dirname -> the scene file's path; res defaults to
-    256 (large) or 64."""
+    256 (large) or 64; variant: scene_variant's changes."""
     text = ply_scene_text('Shape "plymesh" "string filename" "knot.ply"').replace(
         'Integrator "path" "integer maxdepth" 4',
         integrator or 'Integrator "bdpt" "integer maxdepth" 4').replace(
         'Sampler "02sequence" "integer pixelsamples" 4',
         f'Sampler "02sequence" "integer pixelsamples" {spp}').replace(
         "[256]", f"[{res or (256 if large else 64)}]")
-    return _knot_scene_file(dirname, text, KNOT[large])
+    return _knot_scene_file(dirname, scene_variant(text, **variant), KNOT[large])
 
 
 def mlt_line(target="bdpt", maxdepth=4, bootstrap=65536, chains=65536, mutations=8):
@@ -903,6 +1003,35 @@ def _inline_knot(n_u=6, n_v=3):
     pts = " ".join("%.9g" % x for x in m.p.reshape(-1))
     idx = " ".join(str(int(i)) for i in m.indices.reshape(-1))
     return f'  Shape "trianglemesh" "integer indices" [{idx}]\n    "point P" [{pts}]\n'
+
+
+def grid_quads_text(n, half=10.0, y=-1.0) -> str:
+    """An n x n grid of quads spanning [-half, half]^2 at height y, as an
+    inline trianglemesh."""
+    xs = np.linspace(-half, half, n + 1)
+    pts = [(x, y, z) for z in xs for x in xs]
+    idx = []
+    for j in range(n):
+        for i in range(n):
+            a, b = j * (n + 1) + i, j * (n + 1) + i + 1
+            c, d = b + n + 1, a + n + 1
+            idx += [a, b, c, a, c, d]
+    p = " ".join("%.9g" % v for q in pts for v in q)
+    return (f'  Shape "trianglemesh" "integer indices" [{" ".join(map(str, idx))}]\n'
+            f'    "point P" [{p}]\n')
+
+
+KD_FLOOR = (6, 10.0, -1.0)   # the kd-tree calibration scene's floor grid
+
+
+def kdtree_calibration_scene(integrator, res=None, spp=None) -> str:
+    """The knot calibration scene under `Accelerator "kdtree"`, its floor a
+    6x6 grid of quads (110 world triangles)."""
+    text = scene_variant(calibration_scene("knot", integrator, res, spp), accelerator="kdtree")
+    floor = ('  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]\n'
+             '    "point P" [-10 -1 -10  10 -1 -10  10 -1 10  -10 -1 10]\n')
+    assert text.count(floor) == 1
+    return text.replace(floor, grid_quads_text(*KD_FLOOR))
 
 
 def calibration_scene(name, integrator, res=None, spp=None) -> str:

@@ -126,6 +126,12 @@ def tables_from_jax_arrays(a: dict) -> dict:
                                    else np.int32)
     t["mat_tex"] = np.asarray(a["mats.tex"], np.int32)
     t["mat_child"] = np.asarray(a["mats.child"], np.int32)
+    m = t["mat_kind"].shape[0]
+    for k, key, shape in (("sss", "mat_sss", (m, 7)), ("sss_prof", "mat_sss_prof", (m, 3, 64)),
+                          ("sss_cdf", "mat_sss_cdf", (m, 3, 64)),
+                          ("sss_rhoeff", "mat_sss_rhoeff", (m, 3))):
+        v = a.get(f"mats.{k}")
+        t[key] = np.zeros(shape, np.float32) if v is None else np.asarray(v, np.float32)
     t["bsdf_fams"] = tuple(bool(b) for b in a["bsdf_fams"])
     t["n_fourier"] = int(a["n_fourier"])
     for k in FOURIER_KEYS:

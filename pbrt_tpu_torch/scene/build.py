@@ -1,7 +1,10 @@
 """Scene flattening: SceneDescription -> CompiledScene on a device (port of
 the slice's part of pbrt_tpu/scene/build.py): the global triangle table,
 the world BVH and its kernel tables, slot-keyed hit attributes (with each
-triangle's alpha-mask texture ids), the instance world, the quadric table,
+triangle's alpha-mask texture ids), the world kd-tree under
+`Accelerator "kdtree"` over MIN_BVH_TRIS or more world triangles (fewer
+take the BVH, as the reference takes its brute-force test), the instance
+world, the quadric table,
 the medium table with each primitive's, each light's and the camera's
 medium, the texture table with its image atlas, material tables with their fourier
 tables, light tables with the environment map's importance tables and the
@@ -17,6 +20,7 @@ import torch
 
 from pbrt_tpu_torch.accel.bvh import build_bvh
 from pbrt_tpu_torch.accel.instance import pack_instance_world
+from pbrt_tpu_torch.accel.kdtree import KdTree, build_kdtree
 from pbrt_tpu_torch.accel.traverse import pack_kernel_bvh
 from pbrt_tpu_torch.cameras import make_camera
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
@@ -26,7 +30,7 @@ from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.lights import (compile_lights, env_tables, light_power, L_AREA,
                                    L_INFINITE)
 from pbrt_tpu_torch.lights.distrib import build_spatial_distrib
-from pbrt_tpu_torch.materials import compile_materials, material_families
+from pbrt_tpu_torch.materials import compile_materials, compile_subsurface, material_families
 from pbrt_tpu_torch.materials.fourier import fourier_tables, table_on
 from pbrt_tpu_torch.media import compile_media, medium_table
 from pbrt_tpu_torch.samplers import make_sampler
@@ -39,6 +43,7 @@ from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
 from pbrt_tpu_torch.textures import KIND_IDS as TEX_KIND_IDS, T_CHECKER3D, TextureTable
 from pbrt_tpu_torch.textures.image import build_atlas, load_image
 
+MIN_BVH_TRIS = 64   # world triangles from which the reference builds an accelerator
 ENV_KEYS = ("env_func", "env_cond_cdf", "env_cond_int", "env_marg_cdf", "env_marg_int")
 _MAPPINGS = {"uv": 0, "spherical": 1, "cylindrical": 2, "planar": 3}
 
@@ -222,6 +227,8 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
         slot_attr[order < 0, 27] = -1.0
         slot_attr[order < 0, 30:32] = -1.0
         out["slot_attr"] = slot_attr
+        if desc.accelerator_kind == "kdtree" and n_world >= MIN_BVH_TRIS:
+            out["kd"] = build_kdtree(lo - eps, hi + eps)
         pts += [lo, hi]
     if desc.instances:
         proto_tris, proto_gids = [], []
@@ -255,6 +262,8 @@ def build_tables(desc: SceneDescription, cwd=".") -> dict:
     out.update(compile_textures(desc.textures, cwd))
     (out["mat_kind"], out["mat_const"], out["mat_misc"], out["mat_tex"], out["mat_child"],
      ftabs) = compile_materials(desc.materials, cwd)
+    (out["mat_sss"], out["mat_sss_prof"], out["mat_sss_cdf"],
+     out["mat_sss_rhoeff"]) = compile_subsurface(desc.materials, out["mat_misc"])
     out["bsdf_fams"] = material_families(desc.materials)
     out["n_fourier"] = len(ftabs)
     out.update({f"fourier_{k}": v for k, v in fourier_tables(ftabs).items()})
@@ -314,9 +323,12 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
     """Host tables + specs -> CompiledScene with its tensors on `device`."""
     dev = torch.device(device)
     # other integrator parameters are ignored, as in the reference; it
-    # renders spectrally where "spectral" is true and no fourier table is
-    # present (the port raises there until its spectral mode lands)
-    if _param_bool(integrator_params.get("spectral", False)) and not t["n_fourier"]:
+    # renders spectrally where "spectral" is true and neither a fourier
+    # table nor a BSSRDF is present (the port raises there until its
+    # spectral mode lands); with either it renders in RGB
+    has_sss = bool((t["mat_sss"][:, 0] > 0).any())
+    if (_param_bool(integrator_params.get("spectral", False)) and not t["n_fourier"]
+            and not has_sss):
         raise NotImplementedError("integrator parameter 'spectral' true is not ported")
     # the reference takes any other strategy name for "power"
     strategy = str(integrator_params.get("lightsamplestrategy", ["power"])[0])
@@ -344,7 +356,9 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         slot_attr=ten(t["slot_attr"]) if t["n_tris"] else None,
         bvh=t["bvh"].to(dev) if t["n_tris"] else None,
         mats=MaterialTable(ten(t["mat_kind"]), ten(t["mat_const"]), ten(t["mat_misc"]),
-                           ten(t["mat_tex"]), ten(t["mat_child"])),
+                           ten(t["mat_tex"]), ten(t["mat_child"]),
+                           *((ten(t["mat_sss"]), ten(t["mat_sss_prof"]), ten(t["mat_sss_cdf"]),
+                              ten(t["mat_sss_rhoeff"])) if has_sss else ())),
         tex=TextureTable(*(ten(t[f"tex_{k}"]) for k in (
             "kind", "params", "child", "w2t", "image_id", "atlas", "atlas_size",
             "atlas_levels"))),
@@ -363,6 +377,9 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                          dev) if t["n_fourier"] else None,
         prim_medium=ten(t["prim_medium"]), camera_medium=int(t["camera_medium"]),
         media=medium_table(t, dev) if t["n_media"] else None)
+    if "kd" in t:
+        wa = data.tri_attr[:int(t["n_world_tris"])]
+        data.kd = KdTree.from_tables(t["kd"], wa[:, 0:3], wa[:, 3:6], wa[:, 6:9])
     flags = SceneFlags(
         n_tris=int(t["n_tris"]), n_lights=n_lights,
         has_infinite=bool(np.any(kinds == L_INFINITE)),
@@ -379,7 +396,8 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         bsdf_fams=tuple(bool(b) for b in t["bsdf_fams"]),
         mat_kinds=tuple(int(k) for k in np.unique(t["mat_kind"])),
         has_fourier=bool(t["n_fourier"]), light_strategy=strategy,
-        n_media=int(t["n_media"]), any_grid_media=bool(t["any_grid_media"]))
+        n_media=int(t["n_media"]), any_grid_media=bool(t["any_grid_media"]),
+        accel="kdtree" if "kd" in t else "bvh", has_subsurface=has_sss)
     if strategy == "spatial" and n_lights > 0:
         sv = integrator_params.get("spatialvoxels")
         data.light_spatial = build_spatial_distrib(
@@ -390,16 +408,18 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
 
 
 def build_scene(desc: SceneDescription, options=None, device="cuda", seed=0,
-                cwd=".") -> CompiledScene:
+                cwd=".", tables=None) -> CompiledScene:
     """SceneDescription -> CompiledScene on `device`; image textures are
-    read relative to cwd."""
+    read relative to cwd. tables: the description's build_tables, where
+    they were built already (another crop or device of the same scene)."""
     filt = make_filter(desc.filter_kind, desc.filter_params.as_plain_dict())
     film = make_film(desc.film_params.as_plain_dict(), filt, options)
     camera = make_camera(desc.camera_kind, desc.camera_params.as_plain_dict(),
                          desc.camera_to_world, film.full_resolution)
     sampler = make_sampler(desc.sampler_kind, desc.sampler_params.as_plain_dict(),
                            film.full_resolution, seed)
-    return scene_from_tables(build_tables(desc, cwd), camera, film, sampler,
+    return scene_from_tables(build_tables(desc, cwd) if tables is None else tables, camera,
+                             film, sampler,
                              desc.integrator_kind,
                              desc.integrator_params.as_plain_dict(), device)
 

@@ -22,12 +22,19 @@ launch of the route's walk each round; the shadow half of a pair launch
 reads the shadow mask. Geometry is detached where the reference stops its
 gradient, at the top of each entry: no autograd reaches the walks, the
 barycentrics, the quadric pass or the frames.
+
+Under `Accelerator "kdtree"` (flags.accel) every world walk is the
+kd-tree's (accel/kdtree.py, K1 on the card): the closest hits, the shadow
+rays' any-hits in the same pair launch, and the alpha re-traces. It returns
+triangle rows and the watertight test's barycentrics, so hits are keyed by
+`tri_attr` rows and no barycentric is recomputed.
 """
 from __future__ import annotations
 
 import torch
 
 from pbrt_tpu_torch.accel.instance import instance_traverse, trs_matrices_at
+from pbrt_tpu_torch.accel.kdtree import intersect_kdtree
 from pbrt_tpu_torch.accel.traverse import far_miss_rays, traverse
 from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.interaction import SurfaceInteraction, make_frame
@@ -78,12 +85,29 @@ def kernel_bary(o, d, p0, p1, p2):
     return e1 * inv_det, e2 * inv_det
 
 
+def _keyed_attr(data, flags):
+    """The attribute rows a world walk's hit ids index: triangle rows for
+    the kd-tree's walk, leaf slots for the BVH's."""
+    return data.tri_attr if flags.accel == "kdtree" else data.slot_attr
+
+
+def _world_box(data, flags):
+    """(lo, hi) of the world walk's root box, or None without one."""
+    if flags.accel == "kdtree":
+        return data.kd.world_lo, data.kd.world_hi
+    return None if data.bvh is None else (data.bvh.wlo, data.bvh.whi)
+
+
 def _closest(data, flags, o, d, t_max, anyhit):
-    """(t [N], slot [N], b1, b2) of the closest (or, per lane, any) world
-    hit; b1 and b2 are None where the walk does not return them."""
+    """(t [N], id [N], b1, b2) of the closest (or, per lane, any) world
+    hit: the id a leaf slot, or a triangle row under the kd-tree; b1 and b2
+    are None where the walk does not return them."""
     if flags.n_tris == 0:
         return (t_max, torch.full(t_max.shape, -1, dtype=torch.int32, device=o.device),
                 None, None)
+    if flags.accel == "kdtree":
+        return intersect_kdtree(data.kd, o.contiguous(), d.contiguous(), t_max.contiguous(),
+                                anyhit.to(torch.uint8).contiguous())
     args = (data.bvh, o.contiguous(), d.contiguous(), t_max.contiguous(),
             anyhit.to(torch.uint8).contiguous())
     if data.bvh.metas.shape[0] > BARY_ROUTE_NODES:
@@ -97,7 +121,7 @@ def _alpha_of_hit(data, flags, t, slot, b1, b2, o, d, shadow):
     misses and unmasked triangles); shadow [N] bool picks the shadow mask.
     The texture stage is gated to the kinds the masks reach: the other
     lanes' values are discarded, as the reference discards them."""
-    attr = data.slot_attr[torch.clamp(slot, min=0).to(torch.int64)]
+    attr = _keyed_attr(data, flags)[torch.clamp(slot, min=0).to(torch.int64)]
     aid = torch.where(shadow, attr[:, AT_SALPHA], attr[:, AT_ALPHA]).to(torch.int32)
     if b1 is None:
         b1, b2 = kernel_bary(o, d, attr[:, AT_P0:AT_P0 + 3], attr[:, AT_P1:AT_P1 + 3],
@@ -120,7 +144,7 @@ def _closest_alpha(data, flags, o, d, t_max, anyhit, shadow):
         return _closest(data, flags, o, d, t_max, anyhit)
     closest = torch.zeros_like(anyhit)
     t, slot, b1, b2 = _closest(data, flags, o, d, t_max, closest)
-    fo, fd = far_miss_rays(data.bvh, o.shape[0], o.device)
+    fo, fd = far_miss_rays([_world_box(data, flags)], o.shape[0], o.device)
     t_off = torch.zeros_like(t)
     oo = o
     for _ in range(ALPHA_ROUNDS):
@@ -141,9 +165,9 @@ def _closest_alpha(data, flags, o, d, t_max, anyhit, shadow):
 
 
 def _instance_pass(data, flags, o, d, t, slot, b1, b2, time):
-    """Fold the instance world's closest hits into the world hits (with
-    their barycentrics, or None to compute them). The world t is the
-    instance walk's t_max, so a tie keeps the world hit.
+    """Fold the instance world's closest hits into the world hits (ids of
+    the world walk, with their barycentrics, or None to compute them). The
+    world t is the instance walk's t_max, so a tie keeps the world hit.
     -> (t, tri, b1, b2, inst): triangle rows of tri_attr, -1 on a miss."""
     n = o.shape[0]
     dev = o.device
@@ -151,8 +175,8 @@ def _instance_pass(data, flags, o, d, t, slot, b1, b2, time):
     if flags.n_tris == 0:
         b1 = b2 = torch.zeros(n, device=dev)
     else:
-        tri = torch.where(slot >= 0, data.bvh.order[torch.clamp(slot, min=0).to(torch.int64)],
-                          tri)
+        tri = slot if flags.accel == "kdtree" else torch.where(
+            slot >= 0, data.bvh.order[torch.clamp(slot, min=0).to(torch.int64)], tri)
         if b1 is None:
             attr = data.tri_attr[torch.clamp(tri, min=0).to(torch.int64)]
             b1, b2 = kernel_bary(o, d, attr[:, AT_P0:AT_P0 + 3], attr[:, AT_P1:AT_P1 + 3],
@@ -227,6 +251,14 @@ def _quadric_eval(quads, qi, o, d):
             torch.einsum("nij,nj->ni", lin, dpdv), perr)
 
 
+def dead_lane_rays(data, flags, n, device):
+    """(o, d) [n,3] of rays that miss the world walk's and the instance
+    world's root boxes (None without either): dead lanes retire on them."""
+    inst = None if data.ibvh is None else (data.ibvh.wlo, data.ibvh.whi)
+    boxes = [b for b in (_world_box(data, flags), inst) if b is not None]
+    return far_miss_rays(boxes, n, device) if boxes else None
+
+
 def intersect(data, flags, o, d, t_max, time=None) -> SurfaceInteraction:
     """Closest hit of the whole wavefront -> SurfaceInteraction. time [N]
     places animated instances (None: time 0; static scenes ignore it)."""
@@ -235,6 +267,8 @@ def intersect(data, flags, o, d, t_max, time=None) -> SurfaceInteraction:
     no = torch.zeros(n, dtype=torch.bool, device=o.device)
     t, slot, b1, b2 = _closest_alpha(data, flags, o, d, t_max, no, no)
     tri = inst = None
+    if flags.accel == "kdtree" and not flags.n_instances:
+        tri, slot = slot, None
     if flags.n_instances:
         if time is None:
             time = torch.zeros(n, device=o.device)
@@ -258,9 +292,9 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
     n = o_nx.shape[0]
     o_nx, d_nx, tmax_nx = o_nx.detach(), d_nx.detach(), tmax_nx.detach()
     o_sh, d_sh, dist_sh = o_sh.detach(), d_sh.detach(), dist_sh.detach()
-    roots = [b for b in (data.bvh, data.ibvh) if b is not None]
-    if roots:
-        fo, fd = far_miss_rays(roots[0], n, o_nx.device, *roots[1:])
+    far = dead_lane_rays(data, flags, n, o_nx.device)
+    if far is not None:
+        fo, fd = far
         o_nx = torch.where(active_nx[:, None], o_nx, fo)
         d_nx = torch.where(active_nx[:, None], d_nx, fd)
         o_sh = torch.where(active_sh[:, None], o_sh, fo)
@@ -280,6 +314,8 @@ def intersect_pair(data, flags, o_nx, d_nx, tmax_nx, active_nx,
     else:
         occluded = slot[n:] >= 0
         slot = slot[:n]
+        if flags.accel == "kdtree":
+            tri, slot = slot, None
     q_t = q_id = None
     if flags.n_quadrics:
         q_t, q_id = _quadric_pass(data.quads, o2, d2,

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel.instance import InstanceBVH
+from pbrt_tpu_torch.accel.kdtree import KdTree
 from pbrt_tpu_torch.accel.traverse import KernelBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_tpu_torch.textures import TextureTable
@@ -35,6 +36,11 @@ class MaterialTable:
     misc: torch.Tensor    # [M, 8]: eta, remaproughness, ...
     tex: torch.Tensor     # [M, N_SLOTS] int32 texture id of each slot (-1: its constant)
     child: Optional[torch.Tensor] = None   # [M, 2] int32 a mix's materials (-1: none)
+    # BSSRDF rows (materials.compile_subsurface); None without subsurface materials
+    sss: Optional[torch.Tensor] = None          # [M, 7] flag, sigma_t rgb, albedo rgb
+    sss_prof: Optional[torch.Tensor] = None     # [M, 3, 64] profile rows
+    sss_cdf: Optional[torch.Tensor] = None      # [M, 3, 64] their CDFs
+    sss_rhoeff: Optional[torch.Tensor] = None   # [M, 3] effective albedos
 
 
 @dataclasses.dataclass
@@ -109,6 +115,7 @@ class SceneData:
     prim_medium: Optional[torch.Tensor] = None  # [P,2] int32 (inside, outside) medium, -1 vacuum
     media: object = None                  # media.MediumTable
     camera_medium: int = -1               # the camera's medium (-1: vacuum)
+    kd: Optional[KdTree] = None           # the world kd-tree under Accelerator "kdtree"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +141,8 @@ class SceneFlags:
     light_strategy: str = "power"        # "power", "uniform" or "spatial"
     n_media: int = 0                     # named media
     any_grid_media: bool = False
+    accel: str = "bvh"                   # the world walk: "bvh" or "kdtree"
+    has_subsurface: bool = False         # some material is subsurface or kdsubsurface
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
 """Triangle meshes (port of pbrt_tpu/shapes/triangle.py): host mesh build,
-the procedural benchmark knot, and per-hit shading geometry on tensors."""
+the procedural benchmark knot, per-hit shading geometry on tensors, and the
+reference's watertight ray-triangle test, which the kd-tree walks use."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,6 +41,49 @@ def mesh_from_params(ps, object_to_world) -> TriangleMeshData:
     return TriangleMeshData(indices, np.asarray(p, np.float32),
                             None if n is None else np.asarray(n, np.float32), uv,
                             object_to_world.swaps_handedness())
+
+
+def intersect_tri(p0, p1, p2, o, d, t_max):
+    """The watertight ray-triangle test (the reference's intersect_tri):
+    move the vertices to the ray origin, permute so the ray's largest |d|
+    axis is z (the first of equal ones), shear, take the edge functions as
+    differences of products and accept t in (1e-4 det, t_max det).
+    Arguments broadcast: p0, p1, p2, o, d [..., 3], t_max [...].
+    -> (hit, t, b0, b1, b2)."""
+    ax, ay, az = torch.abs(d[..., 0]), torch.abs(d[..., 1]), torch.abs(d[..., 2])
+    zero = torch.zeros_like(ax, dtype=torch.int64)
+    kz = torch.where((ax >= ay) & (ax >= az), zero, torch.where(ay >= az, zero + 1, zero + 2))
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+
+    def pick(v, k):
+        return torch.where(k == 0, v[..., 0], torch.where(k == 1, v[..., 1], v[..., 2]))
+
+    dz = pick(d, kz)
+    sz = 1.0 / torch.where(dz == 0.0, 1e-20, dz)
+    sx = -pick(d, kx) * sz
+    sy = -pick(d, ky) * sz
+
+    def shear(p):
+        t = p - o
+        pz = pick(t, kz)
+        return pick(t, kx) + sx * pz, pick(t, ky) + sy * pz, pz * sz
+
+    x0, y0, z0 = shear(p0)
+    x1, y1, z1 = shear(p1)
+    x2, y2, z2 = shear(p2)
+    e0 = vm.diff_of_products(x1, y2, y1, x2)
+    e1 = vm.diff_of_products(x2, y0, y2, x0)
+    e2 = vm.diff_of_products(x0, y1, y0, x1)
+    same_sign = (((e0 >= 0) & (e1 >= 0) & (e2 >= 0))
+                 | ((e0 <= 0) & (e1 <= 0) & (e2 <= 0)))
+    det = e0 + e1 + e2
+    t_scaled = e0 * z0 + e1 * z1 + e2 * z2
+    t_ok = torch.where(det > 0, (t_scaled > 1e-4 * det) & (t_scaled < t_max * det),
+                       (t_scaled < 1e-4 * det) & (t_scaled > t_max * det))
+    hit = same_sign & (det != 0.0) & t_ok
+    inv_det = 1.0 / torch.where(det == 0.0, 1e-20, det)
+    return hit, t_scaled * inv_det, e0 * inv_det, e1 * inv_det, e2 * inv_det
 
 
 def triangle_shading(b0, b1, b2, tp0, tp1, tp2, tuv):

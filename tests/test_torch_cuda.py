@@ -598,3 +598,71 @@ def test_untouched_scenes_keep_their_device_kernels(name, tmp_path):
     lo, hi = UNTOUCHED_KERNELS[name]
     lo, hi = int(lo * 0.995), int(hi * 1.005)
     assert n < lo if name == "sphere" else lo <= n <= hi, n
+
+
+def _kd_scene(dev, options=None, **variant):
+    from pbrt_tpu_torch.scene import bench as Bn
+    from pbrt_tpu_torch.scene.build import build_scene
+    return build_scene(Bn.bench_variant_description(False, **variant), options, dev)
+
+
+def test_kd_kernel_matches_plain():
+    """K1 against intersect_kdtree_plain (on the card's tensors) on the
+    small bench knot's kd-tree: a camera launch and 20,001 random rays,
+    the second half any-hit: t, triangle, b1 and b2 bit-equal on every
+    ray; one launch counted."""
+    needs_cuda()
+    from pbrt_tpu_torch.accel import kdtree as K
+    dev = torch.device("cuda")
+    cs = _kd_scene(dev, accelerator="kdtree")
+    assert cs.flags.accel == "kdtree"
+    o, d, tm, ah = _launch_rays(cs, dev)
+    before = K.intersect_kdtree.launches
+    got = K.intersect_kdtree(cs.data.kd, o, d, tm, ah)
+    torch.cuda.synchronize()
+    assert K.intersect_kdtree.launches == before + 1
+    want = K.intersect_kdtree_plain(cs.data.kd, o, d, tm, ah)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((got[1] >= 0).any()) and bool((got[1] < 0).any())
+
+
+def test_kd_wrapper_raises_instead_of_falling_back():
+    needs_cuda()
+    from pbrt_tpu_torch.accel import kdtree as K
+    dev = torch.device("cuda")
+    cs = _kd_scene(dev, accelerator="kdtree")
+    o, d, tm, ah = _launch_rays(cs, dev)
+    with pytest.raises(TypeError):
+        K.intersect_kdtree(cs.data.kd, o, d, tm, ah.to(torch.int32))
+    with pytest.raises(ValueError):
+        K.intersect_kdtree(cs.data.kd, o, d.cpu(), tm, ah)
+
+
+@pytest.mark.parametrize("variant", ["moving", "kdtree", "subsurface", "kdsubsurface"])
+def test_slice_forms_on_the_card_match_the_cpu(variant):
+    """The small bench scene with a moving camera, under the kd-tree, and
+    with a subsurface or kdsubsurface knot: a 16x16 crop bitwise equal over
+    two card renders and within rtol 1e-3 / atol 1e-4 of the CPU's on 99%
+    of its pixels, the means within 1%; the kd render launches K1 and no
+    BVH kernel, the others B1 and not K1."""
+    needs_cuda()
+    from pbrt_tpu_torch.accel import kdtree as K
+    from pbrt_tpu_torch.scene import bench as Bn
+    kw = {"moving": dict(motion=Bn.CAMERA_MOTION), "kdtree": dict(accelerator="kdtree"),
+          "subsurface": dict(knot_material=Bn.SUBSURFACE_KNOT),
+          "kdsubsurface": dict(knot_material=Bn.KDSUBSURFACE_KNOT)}[variant]
+    crop = Options(crop_window=(0.5, 0.75, 0.5, 0.75))
+    b1, k1 = T.traverse.launches, K.intersect_kdtree.launches
+    a, _, _ = render_sampler_integrator(_kd_scene("cuda", crop, **kw), crop)
+    torch.cuda.synchronize()
+    if variant == "kdtree":
+        assert T.traverse.launches == b1 and K.intersect_kdtree.launches > k1
+    else:
+        assert T.traverse.launches > b1 and K.intersect_kdtree.launches == k1
+    b, _, _ = render_sampler_integrator(_kd_scene("cuda", crop, **kw), crop)
+    c, _, _ = render_sampler_integrator(_kd_scene("cpu", crop, **kw), crop)
+    assert a.shape == (16, 16, 3) and torch.equal(a, b) and float(a.sum()) > 0
+    a, c = a.cpu().numpy(), c.numpy()
+    assert np.mean(np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), -1)) >= 0.99
+    assert abs(a.mean() - c.mean()) <= 0.01 * abs(c.mean())

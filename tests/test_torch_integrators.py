@@ -114,9 +114,9 @@ def test_repaired_forms_render_as_without_them(form):
     ('Integrator "sppm" "bool spectral" "true"', "spectral"),
     ('Integrator "mlt" "bool spectral" "true"', "spectral"),
     ('Integrator "path" "bool spectral" "true"', "spectral"),
-    ('Accelerator "kdtree"', "accelerator 'kdtree'"),
-    ('Camera "realistic"', "camera 'realistic'"),
-    ('Camera "environment"', "camera 'environment'"),
+    ('Integrator "whitted" "bool spectral" "true"', "spectral"),
+    ('Integrator "directlighting" "bool spectral" "true"', "spectral"),
+    ('Integrator "volpath" "bool spectral" "true"', "spectral"),
 ])
 def test_unported_forms_still_raise(line, what):
     text = SMOKE.replace("WorldBegin", line + "\nWorldBegin")

@@ -287,7 +287,7 @@ def test_kernel_resources_reads_the_ptxas_report(tmp_path, monkeypatch):
 
 def test_far_miss_rays_retire_at_root(bench_tables):
     _, kb = bench_tables
-    o, d = T.far_miss_rays(kb, 64, "cpu")
+    o, d = T.far_miss_rays([(kb.wlo, kb.whi)], 64, "cpu")
     t, s, it = T.traverse(kb, o.contiguous(), d.contiguous(),
                           torch.full((64,), float("inf")), torch.zeros(64, dtype=torch.uint8))
     assert torch.all(s == -1) and int(it[0]) == 1

@@ -134,3 +134,35 @@ def mlt_inputs(seed, n_dims, n=N_LANES):
     rng = np.random.default_rng(seed)
     return (rng.uniform(0, 1, (n, n_dims)).astype(np.float32),
             rng.integers(0, DEPTH + 1, n).astype(np.int32))
+
+
+# ---- li_path on the moving, environment and realistic cameras, the kd-tree
+# and subsurface knots (tests/test_torch_cameras.py, test_torch_kdtree.py,
+# test_torch_subsurface.py) ----
+CAL_KNOT_LINE = 'Material "plastic" "rgb Kd" [0.3 0.3 0.7] "rgb Ks" [0.3 0.3 0.3]'
+PATH_CASES = ("path_moving", "path_environment", "path_realistic", "path_kdtree",
+              "path_subsurface", "path_kdsubsurface")
+
+
+def path_case_scene(name):
+    """The scene text of a PATH_CASES case: the knot calibration scene
+    under path at DEPTH with its camera, accelerator or knot changed."""
+    from pbrt_tpu_torch.scene import bench as Bn
+    line = integrator_line("path")
+    if name == "path_kdtree":
+        return Bn.kdtree_calibration_scene(line)
+    text = Bn.calibration_scene("knot", line)
+    variant = {"path_moving": dict(motion=Bn.CAMERA_MOTION),
+               "path_environment": dict(camera=Bn.ENV_CAMERA),
+               "path_realistic": dict(camera=Bn.REALISTIC_CAMERA),
+               "path_subsurface": dict(knot_material=Bn.SUBSURFACE_KNOT),
+               "path_kdsubsurface": dict(knot_material=Bn.KDSUBSURFACE_KNOT)}[name]
+    return Bn.scene_variant(text, knot_line=CAL_KNOT_LINE, **variant)
+
+
+def open_lens(load_lens_system, trace_np, normalize_np):
+    """The realistic camera of path_realistic opened (bench.open_lens)
+    with the given package's load_lens_system, float32 trace and
+    normalize -> (lens [n,4], bounds [32,4] f32)."""
+    from pbrt_tpu_torch.scene import bench as Bn
+    return Bn.open_lens(load_lens_system, trace_np, normalize_np)

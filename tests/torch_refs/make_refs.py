@@ -20,7 +20,9 @@ acceptance), and the image. The SPPM iteration cases run _sppm_iteration
 jitted for its outputs, and once more eagerly with its locals and the
 first _deposit call's inputs (its live photons' rows) and outputs kept;
 render_sppm_point stores
-the 4-iteration image and the overflow count.
+the 4-iteration image and the overflow count. The path cases (PATH_CASES)
+store li_path's L, p_film, ray weights and counters of 1,024 lanes at
+depth 3; path_realistic's camera has its lens opened (cases.open_lens).
 """
 from __future__ import annotations
 
@@ -70,6 +72,23 @@ def li_case(name, scene, kind, strategy, seed):
     L, p_film, _, cnt = f(jnp.asarray(px), jnp.asarray(py), jnp.asarray(s))
     _save(name, scene=text, px=px, py=py, s=s, seed=seed, L=np.asarray(L),
           p_film=np.asarray(p_film), **_counts(cnt))
+
+
+def path_case(name, seed):
+    from pbrt_tpu.integrators.path import li_path
+    from pbrt_tpu.scene import load_scene_string
+    text = C.path_case_scene(name)
+    jcs = load_scene_string(text)
+    if name == "path_realistic":
+        from pbrt_tpu.cameras import realistic as JR
+        lens, bounds = C.open_lens(JR.load_lens_system, JR._trace_from_film_np, JR.normalize_np)
+        object.__setattr__(jcs.camera, "lens_elements", lens)
+        object.__setattr__(jcs.camera, "_exit_pupil", bounds)
+    px, py, s = C.case_lanes(text, seed)
+    f = jax.jit(lambda a, b, c: li_path(jcs, a, b, c, max_depth=C.DEPTH, with_stats=True))
+    L, p_film, w, cnt = f(jnp.asarray(px), jnp.asarray(py), jnp.asarray(s))
+    _save(name, scene=text, px=px, py=py, s=s, seed=seed, L=np.asarray(L),
+          p_film=np.asarray(p_film), w=np.asarray(w), **_counts(cnt))
 
 
 def volpath_case(name, grid, seed):
@@ -335,6 +354,8 @@ def all_cases():
         out[f"sppm_iteration_{scene}"] = functools.partial(sppm_iteration_case,
                                                            f"sppm_iteration_{scene}", scene)
     out[C.SPPM_RENDER[0]] = sppm_render_case
+    for i, name in enumerate(C.PATH_CASES):
+        out[name] = functools.partial(path_case, name, 50 + i)
     return out
 
 
