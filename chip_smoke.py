@@ -39,7 +39,7 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      the kernel's walk and instance records, and the static shell launch's work per ray (interior
      pops, box tests, triangle tests, instance entries, deepest stack);
   7. render both instanced scenes (256x256, 02sequence at 4 spp, depth 4)
-     end to end, three times each after a warm-up: finite and nonzero, 5
+     end to end, TIMED times each after a warm-up: finite and nonzero, 5
      launches per pass of each kernel; one more render under
      torch.profiler for the device's busy time and each kernel's device
      ms; a 32x32 crop bitwise equal
@@ -61,14 +61,14 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      way, and B3 against B1: equal hit masks, t bit-equal on >= 99.99%
      of hits, slot equal except on exact-t ties (rays that differ are
      printed); time both beside B1;
-  10. render the PLY bench scene end to end three times after a warm-up and
+  10. render the PLY bench scene end to end TIMED times after a warm-up and
      its loopsubdiv variant once: finite and nonzero, 5 "packet" launches
      per pass and no B1 launch; one render under torch.profiler for the
      device's busy time and the packet kernel's device ms; a 32x32 crop
      bitwise equal over two renders and close to the CPU crop;
   11. render the sphere scene of BASELINE.json's first configuration (one
      matte sphere, one point light, 256x256, 02sequence at 16 spp, depth 5;
-     no triangle, so no BVH kernel) end to end three times after a warm-up:
+     no triangle, so no BVH kernel) end to end TIMED times after a warm-up:
      finite and nonzero, no kernel launch; one render under torch.profiler
      for the device's kernels, time and busy share; a 32x32 crop over the
      sphere bitwise equal over two renders and close to the CPU crop; time
@@ -89,11 +89,11 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      central differences on the card with its epsilons (albedo and light
      positive); a 32x32 crop's gradients within 1e-3 of their largest
      entry of the CPU's; forward and forward+backward walls (medians of
-     three), peak device memory (and its rise over what earlier phases
+     TIMED), peak device memory (and its rise over what earlier phases
      hold) and B1 launches a pass;
   14. the textured bench scene (the large scene with an image-mapped floor
      read from a PNG written here, a marble knot, a checkerboard wall and a
-     quad with a checkerboard alpha mask; 256x256, 4 spp, depth 4): three
+     quad with a checkerboard alpha mask; 256x256, 4 spp, depth 4): TIMED
      renders after a warm-up, finite and nonzero, B1 20 launches a pass
      (the walk and 3 alpha re-traces per intersection); one render under
      torch.profiler; a 32x32 crop bitwise equal over two renders and close
@@ -102,7 +102,7 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      bench knot as copper metal, read from a PLY file, a mix floor of a
      checkerboard matte and a uv-textured plastic, a glass sphere and a
      mirror quad under a 512x256 environment map with a sun; 256x256, 16
-     spp, depth 5): three renders after a warm-up, finite and nonzero, B1 6
+     spp, depth 5): TIMED renders after a warm-up, finite and nonzero, B1 6
      launches a pass; one render under torch.profiler; a 32x32 crop bitwise
      equal over two renders and close to the CPU's;
   16. the all-kinds scene (64x64, orthographic: one sphere of each ported
@@ -116,7 +116,7 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      the tensor ops a dimension of each kind;
   18. BASELINE config 2 (scene/bench.py write_config2_scene: the PLY bench
      scene, its 100,352-triangle knot over 32,768 nodes, with the
-     stratified sampler 4x4 jittered, 256x256, depth 5): three renders
+     stratified sampler 4x4 jittered, 256x256, depth 5): TIMED renders
      after a warm-up, finite and nonzero, "packet" (B5) 6 launches a pass
      and no other kernel; one render under torch.profiler; a 32x32 crop
      bitwise equal over two renders and close to the CPU's;
@@ -200,7 +200,24 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      depth 5, 4 spp): B1 21 launches a pass (the probe chain's peels
      included), finite and nonzero, the profile and the crop checks; and
      the small scene with a kdsubsurface knot (64x64).
-  Each of phases 27 - 30 prints its render walls (the host clock after
+  31. spectral mode: the large bench scene under "bool spectral" "true"
+     (B1 5 a pass, its channel means within 4% of phase 5's RGB image,
+     not equal to it), the profile and the crop checks; config 3 under
+     directlighting with the flag (B1 11 a pass, the checks of phase 21);
+  32. the run-time options: the bench scene at 16 spp (a pass a sample)
+     rendered by the CLI with --checkpoint-every 2 and --preview 1, killed
+     once its first checkpoint is written, then resumed in this process:
+     bit-equal to the straight render, B1 5 a pass; the preview file and
+     the resumed render's stats report;
+  33. the sharded render (parallel/mesh.py): the large bench scene through
+     render with devices=2, which takes the one card (a world of one rank
+     under NCCL), and over two ranks sharing the card under gloo, each
+     within rtol 2e-5 / atol 2e-6 of render_sampler_integrator's image
+     with equal counters, B1 5 a pass on rank 0; one sharded gradient
+     step (two ranks, the differentiable scene, 65,536 lanes at depth 4)
+     against the single-process gradient (the loss within 1e-5, each
+     leaf within 1e-4 of its largest magnitude).
+  Each of phases 27 - 33 prints its render walls (the host clock after
   torch.cuda.synchronize()), live rays, device kernels and busy share.
 Every profile records the device's activity only (kernels, copies and
 sets), read from the profiler's raw records; its top ops are the kernels'
@@ -263,6 +280,9 @@ REPLACES = {"bvh_traverse": "pbrt_tpu/accel/pallas_traverse.py:1001",
 SOURCES = {"bvh4_traverse": "pbrt_tpu_torch/csrc/bvh4_traverse.cu",
            "instance_traverse": "pbrt_tpu_torch/csrc/instance_traverse.cu",
            "kdtree_traverse": "pbrt_tpu_torch/csrc/kdtree_traverse.cu"}
+# timed renders of a scene (their median is printed; "TIMED" in the phases above):
+# one, for the script's time limit (earlier PRs' medians of three are in PERF.md)
+TIMED = 1
 PEAK_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # fp32 operations per step, counted from the kernels' sources (each add, sub,
@@ -499,14 +519,22 @@ def time_kernels(names_tables, rays, label, card, plain_name=None):
     return out
 
 
-def compare_inst(args, slot_w, counts=None):
-    """Instance kernel vs plain walk on one launch -> max |dt| over hits."""
+def compare_inst(args, slot_w, counts=None, plain_ms=None):
+    """Instance kernel vs plain walk on one launch -> max |dt| over hits;
+    plain_ms: a list to append the plain walk's CUDA-event ms to (a walk
+    without counts is the timed plain walk)."""
     before = I.instance_traverse.launches
     got = I.instance_traverse(*args)
     torch.cuda.synchronize()
     if I.instance_traverse.launches != before + 1:
         raise AssertionError("the instance kernel's launch counter did not advance")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     want = I.instance_traverse_plain(*args, counts)
+    end.record()
+    torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms.append(start.elapsed_time(end))
     t, tri, b1, b2, inst, it = got
     tp, trip, b1p, b2p, instp, itp = want
     if bool(torch.any((it | itp) & T.OVF_BIT)):
@@ -597,16 +625,19 @@ def profile_render(cs, opts):
 def device_summary(prof):
     """A finished profile's device events -> profile_render's tuple."""
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
-               if e.device_type() == cuda]
+    by_name, n_kern = {}, 0   # the names repeat: each is parsed once
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            n_kern += 1
     by_op, mine = {}, dict.fromkeys(REPLACES, 0.0)
-    for name, ms in kernels:
+    for name, ms in by_name.items():
         op = kernel_op(name)
         by_op[op] = by_op.get(op, 0.0) + ms
         if kernel_of(name):
             mine[kernel_of(name)] += ms
     top = ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:5])
-    return sum(ms for _, ms in kernels), len(kernels), top, mine
+    return sum(by_name.values()), n_kern, top, mine
 
 
 def render_instanced(animated, dev, card):
@@ -621,7 +652,7 @@ def render_instanced(animated, dev, card):
     torch.cuda.synchronize()   # the crop render is the warm-up
     opts = Options()
     walls = []
-    for _ in range(3):   # the host clock is noisy: three renders, the median
+    for _ in range(TIMED):
         zero_counts()
         t0 = time.time()
         img, cnt, passes = render_sampler_integrator(cs, opts)
@@ -631,7 +662,7 @@ def render_instanced(animated, dev, card):
         launches = (counts["bvh_traverse"], counts["instance_traverse"])
         check_render(img, counts, {"bvh_traverse": 5 * passes,
                                    "instance_traverse": 5 * passes}, f"{label} instanced")
-    wall = sorted(walls)[1]
+    wall = sorted(walls)[len(walls) // 2]
     samples = 256 * 256 * cs.sampler.rounded_spp()
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
     print(f"instanced render ({label}): {', '.join(f'{w:.3f}' for w in walls)} s, median "
@@ -689,7 +720,7 @@ def check_crop(a, b, c, label, bound=0.99):
 
 def render_quadric_scene(label, build, crop, want, dev, card):
     """Build and render one scene with quadrics end to end (phases 11 and
-    12): three timed renders after a warm-up, each finite and nonzero with
+    12): TIMED timed renders after a warm-up, each finite and nonzero with
     the launches want ({kernel: launches per pass}); one render under
     torch.profiler; the crop bitwise equal over two renders and close to
     the CPU crop -> the scene built on the card."""
@@ -703,7 +734,7 @@ def render_quadric_scene(label, build, crop, want, dev, card):
     torch.cuda.synchronize()   # the crop render is the warm-up
     opts = Options()
     walls = []
-    for _ in range(3):
+    for _ in range(TIMED):
         zero_counts()
         t0 = time.time()
         img, cnt, passes = render_sampler_integrator(cs, opts)
@@ -711,7 +742,7 @@ def render_quadric_scene(label, build, crop, want, dev, card):
         walls.append(time.time() - t0)
         launches = read_counts()
         check_render(img, launches, {k: v * passes for k, v in want.items()}, label)
-    wall = sorted(walls)[1]
+    wall = sorted(walls)[len(walls) // 2]
     samples = 256 * 256 * cs.sampler.rounded_spp()
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
     print(f"{label} render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; "
@@ -780,7 +811,7 @@ def diff_pass(dev, card, res=256):
         if abs(ad - fd) >= 0.05 * max(abs(fd), 1e-4) or (name != "texture" and ad <= 0):
             raise AssertionError(f"the {name} gradient disagrees with central differences")
     walls = {"forward": [], "forward+backward": []}
-    for _ in range(3):
+    for _ in range(TIMED):
         t0 = time.time()
         loss_no_tape(cs, p0, px, py)
         torch.cuda.synchronize()
@@ -800,9 +831,9 @@ def diff_pass(dev, card, res=256):
         raise AssertionError(f"crop gradients on the card vs the CPU: {worst:.2e} of the "
                              "largest entry")
     print(f"differentiable pass, {res}x{res} at {n_samples} spp, depth {depth}: loss {float(loss)!r} "
-          f"bitwise equal with and without the tape; gradients finite; walls (medians of "
-          f"three) forward {sorted(walls['forward'])[1]:.3f} s, forward+backward "
-          f"{sorted(walls['forward+backward'])[1]:.3f} s; peak device memory "
+          f"bitwise equal with and without the tape; gradients finite; walls forward "
+          f"{sorted(walls['forward'])[TIMED // 2]:.3f} s, forward+backward "
+          f"{sorted(walls['forward+backward'])[TIMED // 2]:.3f} s; peak device memory "
           f"{peak / 2 ** 20:.1f} MiB, {(peak - held) / 2 ** 20:.1f} MiB above the "
           f"{held / 2 ** 20:.1f} MiB held before; B1 {launches['bvh_traverse'] // n_samples} launches a pass; "
           f"32x32 crop gradients within {worst:.2e} of the CPU's largest entry  [{card}]")
@@ -825,7 +856,7 @@ def textured_render(dev, card, large=True):
         torch.cuda.synchronize()   # the crop render is the warm-up
         opts = Options()
         walls = []
-        for _ in range(3):
+        for _ in range(TIMED):
             zero_counts()
             t0 = time.time()
             img, cnt, passes = render_sampler_integrator(cs, opts)
@@ -834,7 +865,7 @@ def textured_render(dev, card, large=True):
             launches = read_counts()
             check_render(img, launches, {"bvh_traverse": 20 * passes}, "textured",
                          res=256 if large else 64)
-        wall = sorted(walls)[1]
+        wall = sorted(walls)[len(walls) // 2]
         live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
         print(f"textured render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; "
               f"{passes} passes, B1 {launches['bvh_traverse'] // passes} launches a pass; "
@@ -924,7 +955,7 @@ def config4_stages(path, copt, dev):
           + "; ".join(rows))
 
 
-def scene_file_render(label, path, res, crop, want, dev, card, timed=3, small_path=None,
+def scene_file_render(label, path, res, crop, want, dev, card, timed=TIMED, small_path=None,
                       lit=True):
     """Phases 15, 16 and 18 - 22: one scene file end to end on the card,
     by its integrator (render): `timed` renders after a warm-up, each
@@ -1437,6 +1468,162 @@ def subsurface_renders(dev, card):
     timed_render("kdsubsurface (64x64)", small, want, card, res=64)
 
 
+SPECTRAL = ' "bool spectral" "true"'
+
+
+def spectral_renders(dev, card, rgb_img):
+    """Phase 31: the large bench scene under "bool spectral" "true" (B1 5 a
+    pass; its image's mean a channel within 4% of phase 5's RGB image,
+    rgb_img: tests/test_spectral.py's metamer tolerance), then config 3
+    under directlighting with the flag (B1 11 a pass)."""
+    desc = Bn.bench_variant_description(
+        True, integrator='Integrator "path" "integer maxdepth" 4' + SPECTRAL)
+    tables = build_tables(desc)
+    cs = build_scene(desc, None, dev, tables=tables)
+    if not cs.flags.spectral:
+        raise AssertionError("the spectral bench scene is not spectral")
+    want = {"bvh_traverse": 5}
+    img, _, _, wall = timed_render("spectral", cs, want, card)
+    c_spec, c_rgb = (x.reshape(-1, 3).mean(0).cpu().numpy() for x in (img, rgb_img))
+    rel = np.abs(c_spec - c_rgb) / c_rgb
+    print(f"spectral: image mean a channel {c_spec} against the RGB render's {c_rgb}, "
+          f"{rel.max():.5f} off at most (bound 0.04)")
+    if not rel.max() < 0.04 or torch.equal(img, rgb_img):
+        raise AssertionError(f"the spectral image's channel means are {rel} off the RGB "
+                             "image's, or equal to it")
+    profiled("spectral", cs, wall, want, card, warm=False)
+    variant_crops("spectral", desc, tables, dev)
+    line = 'Integrator "directlighting" "integer maxdepth" 5' + SPECTRAL
+    with tempfile.TemporaryDirectory(prefix="spectral_") as tmp:
+        full, low = os.path.join(tmp, "full"), os.path.join(tmp, "low")
+        os.mkdir(full)
+        os.mkdir(low)
+        cs3 = scene_file_render("config 3, directlighting, spectral",
+                                write_env_material_scene(full, large=True, integrator=line),
+                                256, (0.5, 0.625, 0.5, 0.625), {"bvh_traverse": 11}, dev, card,
+                                timed=1,
+                                small_path=write_env_material_scene(low, spp=4, integrator=line))
+        if not cs3.flags.spectral:
+            raise AssertionError("config 3 under directlighting with the flag is not spectral")
+
+
+def runtime_options(dev, card, spp=16, lanes=65536):
+    """Phase 32: the bench scene at spp samples (one a pass of `lanes`) by
+    the CLI with a checkpoint every 2 passes and a preview every pass,
+    killed once the first checkpoint is there; resumed in this process, it
+    must equal the straight render bit for bit; the preview file and the
+    stats report of the resumed render."""
+    from pbrt_tpu_torch.io.image_io import read_png
+    from pbrt_tpu_torch.utils.checkpoint import load_checkpoint
+    from pbrt_tpu_torch.utils.stats import STATS
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="runtime_") as tmp:
+        path = write_bdpt_scene(tmp, large=True, spp=spp,
+                                integrator='Integrator "path" "integer maxdepth" 4')
+        opts = Options(wavefront_size=lanes)
+        cs = load_scene(path, opts, dev)
+        render(cs, opts)   # the warm-up
+        zero_counts()
+        t0 = time.time()
+        want, _, passes = render(cs, opts)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check_render(want, read_counts(), {"bvh_traverse": 5 * passes}, "straight")
+        ck, preview = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "preview.png")
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pbrt_tpu_torch", "--quiet", "--wavefront", str(lanes),
+             "--checkpoint", ck, "--checkpoint-every", "2", "--preview", "1", "--outfile",
+             preview, path], cwd=here, env=dict(os.environ, PYTHONPATH=here))
+        try:
+            while not os.path.exists(ck) and proc.poll() is None and time.time() - t0 < 300:
+                time.sleep(0.01)
+            done = proc.poll() is not None
+            proc.kill()
+        finally:
+            proc.wait()
+        loaded = load_checkpoint(ck)
+        if loaded is None:
+            raise AssertionError(f"the CLI left no checkpoint (exit code {proc.returncode})")
+        s = loaded[1]
+        print(f"runtime: the CLI {'had ended' if done else 'was killed'} "
+              f"{time.time() - t0:.2f} s after it started, its checkpoint at sample {s} of "
+              f"{passes}")
+        if done or not (s >= 2 and s % 2 == 0 and s < passes):
+            raise AssertionError(f"the CLI was not killed after a checkpoint (sample {s})")
+        if read_png(preview).shape != tuple(want.shape):
+            raise AssertionError("the CLI wrote no whole preview before it was killed")
+        STATS.clear()
+        ropts = Options(wavefront_size=lanes, checkpoint_path=ck, resume=True)
+        zero_counts()
+        t0 = time.time()
+        img, cnt, rpasses = render(load_scene(path, ropts, dev), ropts)
+        torch.cuda.synchronize()
+        rwall = time.time() - t0
+        check_render(img, read_counts(), {"bvh_traverse": 5 * rpasses}, "resumed")
+        if rpasses != passes - s or not torch.equal(img, want):
+            raise AssertionError(f"the resumed render ({rpasses} passes from sample {s}) is "
+                                 "not the straight render bit for bit")
+        report = STATS.format()
+        if STATS.counters["Intersections/Camera rays traced"] != cnt["camera_rays"]:
+            raise AssertionError("the stats report's camera rays are not the render's")
+        print(f"runtime: resumed from sample {s}: {rpasses} passes in {rwall:.3f} s (the "
+              f"straight render {passes} in {wall:.3f} s), bit-equal to the straight render; "
+              f"preview 256x256 written  [{card}]")
+        print(report)
+        STATS.clear()
+
+
+def sharded_renders(dev, card):
+    """Phase 33: the large bench scene by render with devices=2, which
+    takes the one card there is (a world of one rank under NCCL), and over
+    two ranks sharing the card under gloo, each against
+    render_sampler_integrator (rtol 2e-5 / atol 2e-6, the reference's) with
+    B1 5 a pass on rank 0; then one sharded gradient step of the
+    differentiable scene over two ranks against the single-process
+    gradient."""
+    from pbrt_tpu_torch.parallel import mesh as MS
+    cs = build_bench_scene(True, dev)
+    opts = Options()
+    want, cnt, passes = render_sampler_integrator(cs, opts)
+    for n, devices, backend in ((1, 2, "nccl"), (2, 2, "gloo")):
+        if MS.backend_for(dev, n) != backend or (n == 1 and MS.n_ranks_for(devices, dev) != 1):
+            raise AssertionError(f"{n} ranks on {torch.cuda.device_count()} cards: not {backend}")
+        zero_counts()
+        t0 = time.time()
+        img, cnt2, passes2 = (render(cs, Options(devices=devices)) if n == 1
+                              else MS.render_sharded(cs, n, opts))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check_render(img, read_counts(), {"bvh_traverse": 5 * passes2}, f"sharded ({backend})")
+        err = float((img - want).abs().max())
+        np.testing.assert_allclose(img.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-6)
+        if cnt2 != cnt:
+            raise AssertionError(f"the sharded counters {cnt2} are not the render's {cnt}")
+        print(f"sharded render over {n} rank{'s' if n > 1 else ''} ({backend}): {wall:.3f} s "
+              f"(the process start and the other rank's scene build included), {passes2} "
+              f"passes, B1 {5 * passes2} launches on rank 0, max |d| {err:.3g} against "
+              f"render_sampler_integrator, counters equal  [{card}]")
+    cs = build_diff_scene(256, dev)
+    rng = np.random.default_rng(0)
+    px, py = rng.integers(0, 256, 16384), rng.integers(0, 256, 16384)
+    sidx = np.arange(4)
+    t0 = time.time()
+    loss2, g2 = MS.sharded_grad(cs, px, py, sidx, 2, max_depth=4)
+    wall = time.time() - t0
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    loss1, g1 = MS.film_loss_grad(cs, i32(np.tile(px, 4)), i32(np.tile(py, 4)),
+                                  i32(np.repeat(sidx, 16384)), max_depth=4)
+    rel = {f: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+           for f, a, b in zip(g1._fields, g1, g2)}
+    print(f"sharded gradient step (2 ranks, gloo, 65,536 lanes, depth 4): {wall:.2f} s, loss "
+          f"{float(loss2)!r} against {float(loss1)!r}; gradient leaves' max |d| over their "
+          f"largest magnitude {rel}  [{card}]")
+    if abs(float(loss2) - float(loss1)) > 1e-5 * abs(float(loss1)) or max(rel.values()) > 1e-4 \
+            or float(g1.light_L.abs().max()) <= 0 or float(g1.mat_const.abs().max()) <= 0:
+        raise AssertionError("the sharded gradient step is not the single-process one")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -1553,13 +1740,17 @@ def main():
         launches_i = {"camera": world_bounded(cs_i, *camera_launch(cs_i, dev)),
                       "shell": world_bounded(cs_i, *shell_rays(2 * n_cam, dev, seed=3)),
                       "ragged": world_bounded(cs_i, *shell_rays(100_003, dev, seed=4))}
+        plain_ms = {}
         for name, (args, slot_w) in launches_i.items():
             counts = T.WalkCounts(ib.metas) if (name, animated) == ("shell", False) else None
-            inst_err = max(inst_err, compare_inst(args, slot_w, counts))
+            inst_err = max(inst_err, compare_inst(args, slot_w, counts,
+                                                  plain_ms.setdefault(name, [])))
             inst_counts = inst_counts or counts
         for name in ("camera", "shell"):
             args = launches_i[name][0]
-            plain = cuda_ms(lambda: I.instance_traverse_plain(*args), 1, warm=False)
+            # the comparison's plain walk is the timed one, where it counted nothing
+            plain = cuda_ms(lambda: I.instance_traverse_plain(*args), 1, warm=False) \
+                if (name, animated) == ("shell", False) else plain_ms[name][0]
             kern = cuda_ms(lambda: I.instance_traverse(*args), 20)
             b1 = cuda_ms(lambda: T.traverse(kb, *pair), 20)   # the yardstick, B1
             kern2 = cuda_ms(lambda: I.instance_traverse(*args), 20)
@@ -1655,7 +1846,7 @@ def main():
                                         crop)
     torch.cuda.synchronize()   # the crop render is the warm-up
     walls = []
-    for _ in range(3):
+    for _ in range(TIMED):
         zero_counts()
         t0 = time.time()
         img, cnt, passes = render_sampler_integrator(cs_p, opts)
@@ -1663,7 +1854,7 @@ def main():
         walls.append(time.time() - t0)
         ply_launches = read_counts()
         check_render(img, ply_launches, {"bvh_traverse_packet": 5 * passes}, "PLY")
-    wall = sorted(walls)[1]
+    wall = sorted(walls)[len(walls) // 2]
     live = cnt["camera_rays"] + cnt["shadow_rays"] + cnt["bounce_rays"]
     print(f"PLY render: {', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s; {passes} "
           f"passes, {ply_launches['bvh_traverse_packet']} packet and "
@@ -1728,9 +1919,10 @@ def main():
     lap("phase 12")
     # ---- 13: the differentiable pass; 14: the textured bench scene ----
     diff_pass(dev, card)
+    lap("phase 13")
     textured_render(dev, card)
 
-    lap("phases 13, 14")
+    lap("phase 14")
     # ---- 15: BASELINE config 3; 16: the all-kinds scene ----
     with tempfile.TemporaryDirectory(prefix="config3_") as tmp:
         scene_file_render("config 3", write_env_material_scene(tmp, large=True), 256,
@@ -1756,23 +1948,28 @@ def main():
         scene_file_render("config 4", write_config4_scene(full), 256, (0.5, 0.625, 0.5, 0.625),
                           {"bvh_traverse": 6}, dev, card, timed=1, small_path=small)
         config4_stages(small, Options(crop_window=(0.5, 0.625, 0.5, 0.625)), dev)
+    lap("phases 18, 19")
     with tempfile.TemporaryDirectory(prefix="volpath_") as tmp:
         scene_file_render("volpath", write_volpath_scene(tmp), 256, (0.5, 0.625, 0.5, 0.625),
                           {"bvh_traverse": 6 + 5 * TR_SEGMENTS}, dev, card)
 
-    lap("phases 18, 19, 20")
+    lap("phase 20")
     # ---- 21: whitted and directlighting; 22: BDPT; 23: BDPT against path and volpath ----
     integrator_renders(dev, card)
+    lap("phase 21")
     bdpt_render(dev, card)
+    lap("phase 22")
     bdpt_calibration(dev, card)
 
-    lap("phases 21, 22, 23")
+    lap("phase 23")
     # ---- 24: MLT; 25: SPPM; 26: MLT and SPPM against path ----
     mlt_render(dev, card)
+    lap("phase 24")
     sppm_render(dev, card)
+    lap("phase 25")
     sppm_mlt_calibration(dev, card)
 
-    lap("phases 24, 25, 26")
+    lap("phase 26")
     # ---- 27: a moving camera; 28: the kd-tree; 29: the environment and realistic
     # cameras; 30: subsurface ----
     moving_camera(dev, card, large_img)
@@ -1783,6 +1980,13 @@ def main():
     lap("phase 29")
     subsurface_renders(dev, card)
     lap("phase 30")
+    # ---- 31: spectral mode; 32: checkpoint, resume, preview, stats; 33: sharded ----
+    spectral_renders(dev, card, large_img)
+    lap("phase 31")
+    runtime_options(dev, card)
+    lap("phase 32")
+    sharded_renders(dev, card)
+    lap("phase 33")
     print("work per ray of the PLY tree's pair launch (plain walks): " + ", ".join(
         f"{name} {c.interior / n_pair:.2f} interior pops, {c.interior * c.boxes / n_pair:.2f} "
         f"box tests, {c.tri_tests / n_pair:.2f} triangle tests, stack at most {c.max_stack}"

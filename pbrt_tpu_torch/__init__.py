@@ -13,8 +13,9 @@ traversal (csrc/bvh_traverse.cu) and the two-level instance traversal
 build/pbrt_tpu_torch/; CPU tensors take their plain PyTorch versions.
 
 Entry points: `python -m pbrt_tpu_torch scene.pbrt`, or
-scene.load_scene(...) + render.render(...) (which sends BDPT to
-integrators/bdpt.py::render_bdpt and every other integrator to
+scene.load_scene(...) + render.render(...) (which sends SPPM, BDPT and MLT
+to their own drivers, a render asked to run on several devices to
+parallel/mesh.py::render_sharded, and every other to
 render.render_sampler_integrator). They run on the card unless given the
 CPU (`--device cpu`, device="cpu").
 """

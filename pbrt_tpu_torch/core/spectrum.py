@@ -1,9 +1,23 @@
-"""Host colour conversions that the .pbrt front end needs (port of the numpy
-helpers of pbrt_tpu/core/spectrum.py), and luminance. The device spectrum
-is RGB."""
+"""Colour conversions (port of pbrt_tpu/core/spectrum.py): the host
+helpers that the .pbrt front end needs, luminance, the sRGB transfer, and
+the sampled-spectrum mode.
+
+A spectrum on the device is a [..., C] tensor: C = 3 (RGB) by default, and
+C = N_SPECTRAL_SAMPLES under `Integrator ... "bool spectral" "true"`, where
+the integrators widen material and light colours at their boundaries
+(rgb_to_spectrum, materials.lift_lobes) and narrow the radiance back to RGB
+at the film (spectrum_to_rgb). The lift mixes seven smooth basis spectra
+(white, cyan, magenta, yellow, red, green, blue) by the sorted channels of
+the colour, as Smits' method does; each basis is solved on the host as the
+smoothest spectrum whose film RGB equals its target colour (_solve_bases).
+"""
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+N_SPECTRAL_SAMPLES = 60
+LAMBDA_START, LAMBDA_END = 400.0, 700.0
 
 XYZ_TO_RGB = np.array([
     [3.240479, -1.537150, -0.498535],
@@ -71,3 +85,116 @@ def spd_to_rgb(lambdas, values):
     xyz = (bar * v[:, None]).sum(0) / bar[:, 1].sum()
     rgb = np.asarray(xyz, np.float32) @ XYZ_TO_RGB.T
     return np.maximum(rgb, 0.0).astype(np.float32)
+
+
+def gamma_correct(v):
+    """Linear -> sRGB transfer of a tensor."""
+    return torch.where(v <= 0.0031308, 12.92 * v,
+                       1.055 * torch.pow(torch.clamp(v, min=1e-8), 1.0 / 2.4) - 0.055)
+
+
+def inverse_gamma_correct(v):
+    """sRGB -> linear transfer of a tensor."""
+    return torch.where(v <= 0.04045, v / 12.92, torch.pow((v + 0.055) / 1.055, 2.4))
+
+
+# ---- sampled spectra ----
+
+_SPECTRAL_CACHE = {}
+
+
+def spectral_lambdas():
+    """Bin-centre wavelengths [nm] of the sampled representation."""
+    i = np.arange(N_SPECTRAL_SAMPLES) + 0.5
+    return LAMBDA_START + (LAMBDA_END - LAMBDA_START) * i / N_SPECTRAL_SAMPLES
+
+
+def _solve_bases(Q, At, targets):
+    """Smoothest-metamer bases: min s^T Q s subject to At s = target, for
+    each target. An active-set loop clamps the negative bins to 0 and
+    solves again on the free bins, so the film RGB of a saturated basis
+    stays exact (numpy float64)."""
+    C = Q.shape[0]
+    bases = []
+    for t in targets:
+        free = np.ones(C, bool)
+        s = np.zeros(C)
+        for _ in range(6):
+            F = np.flatnonzero(free)
+            Qf = Q[np.ix_(F, F)]
+            Af = At[:, F]
+            KKTf = np.block([[Qf, Af.T], [Af, np.zeros((3, 3))]])
+            rhs = np.concatenate([np.zeros(len(F)), t])
+            try:
+                sol = np.linalg.solve(KKTf, rhs)[:len(F)]
+            except np.linalg.LinAlgError:
+                break
+            s = np.zeros(C)
+            s[F] = sol
+            neg = s < -1e-9
+            if not neg.any():
+                break
+            free &= ~neg
+        bases.append(np.maximum(s, 0.0))
+    return np.stack(bases)
+
+
+def _spectral_tables():
+    """(to_rgb [C,3], illuminant bases [7,C], reflectance bases [7,C]),
+    float32 numpy, solved once. The illuminant bases map to their target
+    RGB under the film's conversion; the reflectance bases do so once
+    multiplied by the white illuminant basis, so a white light's first
+    bounce gives the RGB render's colour."""
+    if "tabs" in _SPECTRAL_CACHE:
+        return _SPECTRAL_CACHE["tabs"]
+    C = N_SPECTRAL_SAMPLES
+    bar = cie_xyz_bar(spectral_lambdas())
+    y_int = bar[:, 1].sum()
+    # the film's operator: rgb = (s @ bar / y_int) @ XYZ_TO_RGB^T
+    A = (bar / y_int).astype(np.float64) @ XYZ_TO_RGB.astype(np.float64).T
+    D = np.zeros((C - 2, C))
+    for i in range(C - 2):
+        D[i, i:i + 3] = (1.0, -2.0, 1.0)
+    Q = D.T @ D + 1e-6 * np.eye(C)
+    targets = np.array([[1, 1, 1], [0, 1, 1], [1, 0, 1], [1, 1, 0],
+                        [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float64)
+    illum = _solve_bases(Q, A.T, targets)
+    refl = _solve_bases(Q, (A * illum[0][:, None]).T, targets)
+    tabs = (A.astype(np.float32), illum.astype(np.float32), refl.astype(np.float32))
+    _SPECTRAL_CACHE["tabs"] = tabs
+    return tabs
+
+
+def _device_table(i, device):
+    key = (i, str(device))
+    if key not in _SPECTRAL_CACHE:
+        _SPECTRAL_CACHE[key] = torch.as_tensor(_spectral_tables()[i], device=device)
+    return _SPECTRAL_CACHE[key]
+
+
+def spectrum_to_rgb(s):
+    """[..., C] sampled spectrum -> [..., 3] linear RGB (the film's side)."""
+    return s @ _device_table(0, s.device)
+
+
+def rgb_to_spectrum(rgb, clamp: bool = True, reflectance: bool = False):
+    """[..., 3] RGB -> [..., C] sampled spectrum: the smallest channel's
+    share of white, the middle one's excess of the secondary of the two
+    larger channels, and the largest one's excess of its primary (ties: R
+    is smallest before G before B; among the two larger, the first of a
+    tie takes the middle). reflectance: the reflectance bases (material
+    colours), else the illuminant bases (emission)."""
+    B = _device_table(2 if reflectance else 1, rgb.device)
+    w, c, m, y, r, g, b = (B[i] for i in range(7))
+    R, G, Bl = rgb[..., 0:1], rgb[..., 1:2], rgb[..., 2:3]
+
+    def mix(lo, mid_c, mid_s, hi_c, hi_s):
+        return lo * w + (mid_c - lo) * mid_s + (hi_c - mid_c) * hi_s
+
+    s_r = torch.where(G <= Bl, mix(R, G, c, Bl, b), mix(R, Bl, c, G, g))
+    s_g = torch.where(R <= Bl, mix(G, R, m, Bl, b), mix(G, Bl, m, R, r))
+    s_b = torch.where(R <= G, mix(Bl, R, y, G, g), mix(Bl, G, y, R, r))
+    r_min = (R <= G) & (R <= Bl)
+    g_min = (G <= R) & (G <= Bl) & ~r_min
+    s = torch.where(r_min, s_r, torch.where(g_min, s_g, s_b))
+    return torch.clamp(s, min=0.0) if clamp else s

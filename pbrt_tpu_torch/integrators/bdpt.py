@@ -677,7 +677,8 @@ def render_bdpt_film(cs, options=None, st_filter=None):
     """Render the film pass by pass, one sample index a pass -> (film
     state with its splats, counters summed, number of passes);
     st_filter: one (s, t) strategy alone."""
-    from pbrt_tpu_torch.render import Options, sample_pixels
+    from pbrt_tpu_torch.render import sample_pixels
+    from pbrt_tpu_torch.utils.options import Options
     options = options or Options()
     dev = cs.device
     D = int(cs.integrator_params.get("maxdepth", [5])[0]) + 1
@@ -706,10 +707,17 @@ def render_bdpt_film(cs, options=None, st_filter=None):
 def render_bdpt(cs, options=None):
     """-> (image [H,W,3] linear RGB tensor on the scene's device, counters
     {name: int} summed over all passes, number of passes); the splats are
-    scaled by 1 / spp."""
+    scaled by 1 / spp. Reports the counters and the render's seconds into
+    STATS."""
+    import time
+    from pbrt_tpu_torch.utils.stats import STATS, merge_device_counters
+    t0 = time.time()
     film, totals, spp = render_bdpt_film(cs, options)
     img = develop(cs.film, film, splat_scale=1.0 / spp)
-    return img, {c: int(v) for c, v in totals.items()}, spp
+    totals = {c: int(v) for c, v in totals.items()}
+    merge_device_counters(STATS, totals)
+    STATS.report_distribution("Performance/BDPT render seconds", time.time() - t0)
+    return img, totals, spp
 
 
 def debug_strategies(max_depth):

@@ -18,6 +18,7 @@ from pbrt_tpu_torch import lights as LT
 from pbrt_tpu_torch.cameras import generate_rays
 from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.sampling import power_heuristic
+from pbrt_tpu_torch.core.spectrum import N_SPECTRAL_SAMPLES, rgb_to_spectrum
 from pbrt_tpu_torch.lights.distrib import spatial_pdf, spatial_sample_discrete
 from pbrt_tpu_torch.materials import bsdf as B
 from pbrt_tpu_torch.samplers import sample_2d, sample_dim
@@ -25,6 +26,12 @@ from pbrt_tpu_torch.scene.intersect import intersect_p
 
 CAMERA_DIMS = 5
 BOUNCE_DIMS = 16
+
+
+def channels(flags) -> int:
+    """Channels of a spectrum in the scene: N_SPECTRAL_SAMPLES in a
+    spectral scene, else 3 (RGB)."""
+    return N_SPECTRAL_SAMPLES if flags.spectral else 3
 
 
 def bounce_base(bounce: int) -> int:
@@ -88,17 +95,22 @@ def select_light_pdf(cs, p, light_idx):
 def prepare_one_light(cs, si, lobes, active, u_sel, u_light):
     """NEE light-sample half without the occlusion trace.
 
-    -> (ld [N,3], shadow origin, shadow direction, shadow t_max [N],
-    contributes [N] bool); the caller traces the shadow ray."""
+    -> (ld [N,C], shadow origin, shadow direction, shadow t_max [N],
+    contributes [N] bool); the caller traces the shadow ray. C is the
+    scene's channel count: the light's radiance is lifted to a spectrum in
+    a spectral scene."""
     data, flags = cs.data, cs.flags
     n = si.p.shape[0]
     if flags.n_lights == 0:
         z = torch.zeros(n, device=si.p.device)
         up = torch.tensor([0.0, 0.0, 1.0], device=si.p.device).expand(n, 3)
-        return torch.zeros_like(si.p), si.p, up, z, torch.zeros_like(active)
+        return (torch.zeros((n, channels(flags)), device=si.p.device), si.p, up, z,
+                torch.zeros_like(active))
     ftab = data.fourier if flags.has_fourier else None
     light_idx, pmf, _ = select_light(cs, si.p, u_sel)
     ls = LT.sample_li(data.lights, light_idx, si.p, u_light, data.world_radius)
+    if flags.spectral:
+        ls.li = rgb_to_spectrum(ls.li)
     wi_local = si.world_to_local(ls.wi)
     wo_local = si.world_to_local(si.wo)
     f = B.bsdf_f(lobes, wo_local, wi_local, ftab, flags.bsdf_fams) \
@@ -119,9 +131,9 @@ def prepare_one_light(cs, si, lobes, active, u_sel, u_light):
 
 def sample_one_light(cs, si, lobes, active, u_sel, u_light):
     """NEE with its shadow ray traced at once (one any-hit launch) ->
-    ld [N,3], not yet weighted by the path throughput."""
+    ld [N,C], not yet weighted by the path throughput."""
     if cs.flags.n_lights == 0:
-        return torch.zeros_like(si.p)
+        return torch.zeros((si.p.shape[0], channels(cs.flags)), device=si.p.device)
     ld, o, sd, dist, contributes = prepare_one_light(cs, si, lobes, active, u_sel, u_light)
     occluded = intersect_p(cs.data, cs.flags, o, sd, dist)
     return torch.where((contributes & ~occluded)[:, None], ld, 0.0)

@@ -1,6 +1,7 @@
 """Direct lighting: light at each hit with MIS, and perfectly specular
 reflection and transmission continue (port of
-pbrt_tpu/integrators/direct.py, RGB).
+pbrt_tpu/integrators/direct.py). In a spectral scene it carries sampled
+spectra (specular_walk's spectral mode), which whitted never does.
 
 strategy "all" samples every light at each hit (no selection pmf, the
 power heuristic against the BSDF's pdf); "one" picks one light by the
@@ -30,5 +31,6 @@ def li_direct(cs, px, py, sample_idx, max_depth: int = 5, strategy: str = "all",
             cnt["shadow_rays"] += active.sum()
             ld = sample_one_light(cs, si, lobes, active, u_sel, u_light)
             return L + torch.where(active[:, None], beta * ld, 0.0)
-        return direct_all_lights(cs, L, beta, si, lobes, active, u_light, cnt, mis=True)
-    return specular_walk(cs, px, py, sample_idx, max_depth, direct)
+        return direct_all_lights(cs, L, beta, si, lobes, active, u_light, cnt, mis=True,
+                                 spectral=cs.flags.spectral)
+    return specular_walk(cs, px, py, sample_idx, max_depth, direct, spectral=cs.flags.spectral)

@@ -21,6 +21,8 @@ column loop.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -30,6 +32,7 @@ from pbrt_tpu_torch.integrators.bdpt import _bdpt_sample
 from pbrt_tpu_torch.integrators.common import BOUNCE_DIMS, CAMERA_DIMS
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.samplers.hashing import hash3, hash_combine, u32, u32_to_float
+from pbrt_tpu_torch.utils.stats import STATS
 
 SIGMA = 0.01
 P_LARGE = 0.3
@@ -162,8 +165,9 @@ def render_mlt(cs, options=None):
     """-> (image [H,W,3] linear RGB tensor on the scene's device, counters
     {"mutations_accepted", "mutations", "bootstrap_samples": int}, number
     of target evaluations: the bootstrap chunks, the chain starts and one
-    a step)."""
-    from pbrt_tpu_torch.render import Options
+    a step). Reports the acceptance rate, the mutations, the bootstrap
+    samples and the chains' seconds into STATS."""
+    from pbrt_tpu_torch.utils.options import Options
     options = options or Options()
     p = cs.integrator_params
     dev = cs.device
@@ -206,10 +210,16 @@ def render_mlt(cs, options=None):
     b_t = torch.tensor(b, dtype=torch.float32, device=dev)
     film = FilmState.zeros(cs.film, dev, splats=True)
     n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.time()
     for step in range(1, n_steps + 1):
         film, chains, acc = mlt_step(cs, film, chains, step, b_t, eval_t, sigma, p_large)
         n_acc += acc.sum()
     counters.update(mutations_accepted=int(n_acc), mutations=n_steps * n_chains)
+    STATS.report_ratio("Integrator/Acceptance rate", counters["mutations_accepted"],
+                       counters["mutations"])
+    STATS.report_counter("Integrator/MLT mutations", counters["mutations"])
+    STATS.report_counter("Integrator/MLT bootstrap samples", n_bootstrap)
+    STATS.report_distribution("Performance/MLT render seconds", time.time() - t0)
     # splat weights carry 1/b: the image is the splats over the mutations a pixel
     scale = 1.0 / max(n_steps * n_chains / n_pix, 1e-9)
     return develop(cs.film, film, splat_scale=scale), counters, passes + 1 + n_steps

@@ -1,5 +1,5 @@
 """Wavefront unidirectional path tracer with NEE, MIS and Russian roulette
-(port of pbrt_tpu/integrators/path.py without its spectral branches).
+(port of pbrt_tpu/integrators/path.py).
 
 Mix materials draw their pick at dimension base + 0 (only where the table
 holds a mix); transmission through glass, translucent and fourier lobes
@@ -16,6 +16,9 @@ index): the differentiable replay of diff/ backpropagates through it.
 In scenes with an image texture, the camera rays carry ray differentials
 through specular bounces and every hit gets its uv screen derivatives
 for the image filter; elsewhere nothing reads them and none is computed.
+In a spectral scene the radiance and throughput are [N, 60] sampled
+spectra: emission, the light samples and the lobes' colours are lifted
+where they enter, and the radiance goes back to RGB at the return.
 
 Scenes with subsurface materials run the reference's BSSRDF branches
 (materials/bssrdf.py). A sampled transmission into a subsurface boundary
@@ -43,12 +46,13 @@ from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.interaction import compute_differentials, specular_diff_rays
 from pbrt_tpu_torch.core.math import normalize
 from pbrt_tpu_torch.core.sampling import power_heuristic
+from pbrt_tpu_torch.core.spectrum import rgb_to_spectrum, spectrum_to_rgb
 from pbrt_tpu_torch.integrators.common import (bounce_base, camera_dims, camera_rays,
-                                               infinite_pdf_for_dir,
+                                               channels, infinite_pdf_for_dir,
                                                light_pdf_for_dir, prepare_one_light)
 from pbrt_tpu_torch.core.math import dot
 from pbrt_tpu_torch.materials import bsdf as B
-from pbrt_tpu_torch.materials import M_MIX, bssrdf as SSS, compute_lobes
+from pbrt_tpu_torch.materials import M_MIX, bssrdf as SSS, compute_lobes, lift_lobes
 from pbrt_tpu_torch.samplers import sample_2d, sample_dim
 from pbrt_tpu_torch.scene.intersect import dead_lane_rays, intersect, intersect_pair
 from pbrt_tpu_torch.textures import T_IMAGEMAP
@@ -180,7 +184,7 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
     drawn from dimensions 2 - 3 and the time from dimension 4, and no ray
     differentials (MLT's primary sample space drives both).
 
-    -> (L [N,3], p_film [N,2], ray_weight [N], counters): counters are
+    -> (L [N,3] RGB, p_film [N,2], ray_weight [N], counters): counters are
     int64 device tensors (see COUNTERS) of live rays and hits."""
     spec, data, flags = cs.sampler, cs.data, cs.flags
     n = px.shape[0]
@@ -200,8 +204,9 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         rays, ray_w = generate_rays(cs.camera, p_film, False,
                                     *camera_dims(cs.camera, sample_dim_, sample_2d_))
     o, d = rays.o, rays.d
-    L = torch.zeros((n, 3), device=dev)
-    beta = torch.ones((n, 3), device=dev)
+    spectral = flags.spectral
+    L = torch.zeros((n, channels(flags)), device=dev)
+    beta = torch.ones((n, channels(flags)), device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
     specular_bounce = torch.ones(n, dtype=torch.bool, device=dev)
     prev_bsdf_pdf = torch.zeros(n, device=dev)
@@ -248,6 +253,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
                 esc = esc & ~pending
             wd = normalize(d)
             le_inf = LT.le_escaped(data.lights, flags.infinite_light_ids, wd)
+            if spectral:
+                le_inf = rgb_to_spectrum(le_inf)
             if bounce == 0:
                 w = torch.ones(n, device=dev)
             else:
@@ -259,6 +266,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
             if sss:
                 hit_l = hit_l & ~pending
             le = LT.le_area(data.lights, si.area_light, si.ng, si.wo)
+            if spectral:
+                le = rgb_to_spectrum(le)
             if bounce == 0:
                 w = torch.ones(n, device=dev)
             else:
@@ -275,6 +284,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         u_mix = sample_dim_(base + 0) if M_MIX in flags.mat_kinds else None
         lobes = compute_lobes(data.mats, data.tex, si.material, si.uv, si.p, si.duv,
                               flags.has_tex_slot, flags.tex_kinds, u_mix, fams, flags.mat_kinds)
+        if spectral:
+            lobes = lift_lobes(lobes)
         if sss:
             lobes = _adapter_lobes(lobes, here, kd_adapter)
 
@@ -339,4 +350,6 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         si, occluded = intersect_pair(data, flags, o, normalize(d), t_max, active,
                                       o_sh, d_sh, dist_sh, nee_live, time=ray_time)
         L = L + torch.where((nee_live & ~occluded)[:, None], beta_nee * ld, 0.0)
+    if spectral:
+        L = spectrum_to_rgb(L)
     return L, p_film, ray_w, cnt

@@ -336,3 +336,21 @@ def compute_lobes(mats, tex, mat_id, uv, p, duv=None, has_tex_slot=(), tex_kinds
     eta = misc[:, 0]
     lb.eta = torch.where(eta > 0, eta, 1.5)
     return lb
+
+
+# the Lobes colour fields that spectral mode widens
+LIFT_FIELDS = ("kd", "kt_diff", "ks", "rd_blend", "kt_gloss", "spec_r", "spec_t", "eta3", "k3")
+
+
+def lift_lobes(lb: B.Lobes) -> B.Lobes:
+    """RGB lobes -> sampled-spectrum lobes: each colour field present
+    (LIFT_FIELDS) widened from [N,3] to [N,C] with the reflectance bases
+    (core/spectrum.py). A conductor's eta and k are lifted the same way:
+    smooth spectra whose film RGB is the table's, as in the reference.
+    Nothing else changes (a spectral scene has no BSSRDF)."""
+    from pbrt_tpu_torch.core.spectrum import rgb_to_spectrum
+    for f in LIFT_FIELDS:
+        v = getattr(lb, f)
+        if v is not None:
+            setattr(lb, f, rgb_to_spectrum(v, reflectance=True))
+    return lb

@@ -1,21 +1,23 @@
-"""Render driver: CompiledScene -> image (port of pbrt_tpu/render.py
-without checkpoints, previews or the stats report).
+"""Render driver: CompiledScene -> image (port of pbrt_tpu/render.py).
 
 `render` sends an SPPM, BDPT or MLT scene to its own driver
-(integrators/sppm.py, bdpt.py, mlt.py) and every other to
-render_sampler_integrator, whose radiance function `li_fn`
+(integrators/sppm.py, bdpt.py, mlt.py), any other scene with
+`Options.devices` over 1 to the sharded render (parallel/mesh.py), and
+every other to render_sampler_integrator, whose radiance function `li_fn`
 picks as the reference's _li_fn does: path, volpath, whitted,
 directlighting with its strategy, and li_path with maxdepth alone for a
 kind it does not name. All pixels of the film's sample bounds, in Morton
 order, times k sample indices make one wavefront pass of about
 `wavefront_size` lanes; each pass deposits into the film, and the host
-loops over passes.
+loops over passes: it resumes from a checkpoint, saves one and writes a
+preview image every so many passes where the options ask, and reports the
+render's statistics into utils/stats.py's STATS.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
-from typing import Optional, Tuple
+import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,17 +31,10 @@ from pbrt_tpu_torch.integrators.path import COUNTERS, li_path
 from pbrt_tpu_torch.integrators.sppm import render_sppm
 from pbrt_tpu_torch.integrators.volpath import li_volpath
 from pbrt_tpu_torch.integrators.whitted import li_whitted
-
-
-@dataclasses.dataclass
-class Options:
-    """Run-shape options of the CLI."""
-    quick: bool = False
-    outfile: str = ""
-    crop_window: Optional[Tuple[float, float, float, float]] = None
-    wavefront_size: int = 1 << 17
-    seed: int = 0
-    sppm_radius: float = 0.0   # over 0: SPPM's initial radius, in place of the scene's
+from pbrt_tpu_torch.io.image_io import write_image
+from pbrt_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from pbrt_tpu_torch.utils.options import Options
+from pbrt_tpu_torch.utils.stats import STATS, merge_device_counters
 
 
 def morton2(x, y, bits=16):
@@ -81,22 +76,77 @@ def li_fn(cs):
 DRIVERS = {"sppm": render_sppm, "bdpt": render_bdpt, "mlt": render_mlt}
 
 
-def render(cs, options: Optional[Options] = None):
+def render(cs, options: Optional[Options] = None, verbose=False):
     """-> (image [H,W,3] linear RGB tensor on the scene's device, counters
     {name: int}, number of passes), by the scene's integrator: SPPM, BDPT
     and MLT by their own drivers (their counters and passes are theirs:
     SPPM's grid overflows and iterations, MLT's mutations and target
     evaluations), every other by render_sampler_integrator (the live-ray
-    counters summed over all passes)."""
-    driver = DRIVERS.get(cs.integrator_kind, render_sampler_integrator)
-    return driver(cs, options)
+    counters summed over all passes), sharded over ranks where
+    options.devices is over 1 (render_sharded; on CUDA one rank a card,
+    as many as there are)."""
+    options = options or Options()
+    driver = DRIVERS.get(cs.integrator_kind)
+    if driver is not None:
+        return driver(cs, options)
+    if options.devices > 1:
+        from pbrt_tpu_torch.parallel.mesh import n_ranks_for, render_sharded
+        return render_sharded(cs, n_ranks_for(options.devices, cs.device), options, verbose)
+    return render_sampler_integrator(cs, options, verbose)
+
+
+def report_render(cs, img, totals, n_pix, spp, passes, lanes, seconds, options):
+    """A sampler integrator's render of n_pix pixels into STATS: its device
+    counters (where options.stats_device), camera rays, passes, lanes a
+    pass, Mpaths/s, film pixels and the lit share of the image."""
+    if options.stats_device:
+        merge_device_counters(STATS, totals)
+    STATS.report_counter("Integrator/Camera rays traced", n_pix * spp)
+    STATS.report_counter("Integrator/Sample batches", passes)
+    STATS.report_counter("Integrator/Wavefront size", lanes)
+    STATS.report_distribution("Performance/Mpaths per second",
+                              n_pix * spp / max(seconds, 1e-9) / 1e6)
+    STATS.report_counter("Memory/Film pixels",
+                         cs.film.full_resolution[0] * cs.film.full_resolution[1])
+    STATS.report_ratio("Film/Nonzero pixels", float((img.sum(-1) > 0).sum()),
+                       float(img.shape[0] * img.shape[1]))
+
+
+def resume_state(cs, options, verbose, spp):
+    """(film, sample cursor) to start from: options.checkpoint_path's
+    where options.resume and it holds a checkpoint, else empty."""
+    film, s = FilmState.zeros(cs.film, cs.device), 0
+    if options.checkpoint_path and options.resume:
+        loaded = load_checkpoint(options.checkpoint_path, cs.device)
+        if loaded is not None:
+            film, s, _ = loaded
+            if verbose:
+                print(f"  resumed from {options.checkpoint_path} at spp {s}/{spp}")
+    return film, s
+
+
+def after_pass(cs, film, s, spp, passes, options):
+    """The preview image and the checkpoint due after a pass, none after
+    the last: the preview to options.preview_path, else the output file,
+    and written first, so a render killed once its checkpoint is there
+    leaves a whole preview."""
+    if s >= spp:
+        return
+    if options.preview_every and passes % options.preview_every == 0:
+        write_image(options.preview_path or options.outfile or cs.film.filename,
+                    develop(cs.film, film).cpu().numpy())
+    if options.checkpoint_path and options.checkpoint_every \
+            and passes % options.checkpoint_every == 0:
+        save_checkpoint(options.checkpoint_path, film, s)
 
 
 @torch.no_grad()
-def render_sampler_integrator(cs, options: Optional[Options] = None):
+def render_sampler_integrator(cs, options: Optional[Options] = None, verbose=False):
     """-> (image [H,W,3] linear RGB tensor on the scene's device,
-    counters {name: int} summed over all passes, number of passes). An
-    ordinary render records no autograd tape (diff/ records one)."""
+    counters {name: int} summed over this run's passes, number of passes).
+    A pass is clamped to the samples left, so a resumed render equals a
+    straight-through one bit for bit. An ordinary render records no
+    autograd tape (diff/ records one)."""
     options = options or Options()
     li = li_fn(cs)
     dev = cs.device
@@ -110,9 +160,10 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
     k = max(1, min(spp, options.wavefront_size // max(n_pix, 1)))
     table = torch.as_tensor(build_table(cs.film.filter), device=dev)
 
-    film = FilmState.zeros(cs.film, dev)
+    film, s = resume_state(cs, options, verbose, spp)
     totals = {c: torch.zeros((), dtype=torch.int64, device=dev) for c in COUNTERS}
-    s = passes = 0
+    passes = 0
+    t0 = time.time()
     while s < spp:
         kk = min(k, spp - s)
         pxs = px.repeat(kk)
@@ -124,16 +175,23 @@ def render_sampler_integrator(cs, options: Optional[Options] = None):
             totals[c] += cnt[c]
         s += kk
         passes += 1
-    return develop(cs.film, film), {c: int(v) for c, v in totals.items()}, passes
+        if verbose:
+            float(film.weight_sum[0, 0])   # waits for the pass
+            el = time.time() - t0
+            print(f"  spp {s}/{spp}  ({el:.1f}s, {n_pix * s / max(el, 1e-9) / 1e6:.2f} Mpaths/s)")
+        after_pass(cs, film, s, spp, passes, options)
+    img = develop(cs.film, film)
+    totals = {c: int(v) for c, v in totals.items()}
+    report_render(cs, img, totals, n_pix, spp, passes, n_pix * k, time.time() - t0, options)
+    return img, totals, passes
 
 
-def render_file(path: str, options: Optional[Options] = None, device="cuda"):
+def render_file(path: str, options: Optional[Options] = None, device="cuda", verbose=False):
     """Parse, render and write one scene file -> (output path, image)."""
-    from pbrt_tpu_torch.io.image_io import write_image
     from pbrt_tpu_torch.scene.build import load_scene
     options = options or Options()
     cs = load_scene(path, options, device=device, seed=options.seed)
-    img, _, _ = render(cs, options)
+    img, _, _ = render(cs, options, verbose)
     out = options.outfile or cs.film.filename
     write_image(out, img.cpu().numpy())
     return out, img

@@ -154,7 +154,9 @@ def bench_description(large: bool = False):
 
 
 def build_bench_scene(large: bool = False, device="cuda", options=None):
-    return build_scene(bench_description(large), options, device)
+    cs = build_scene(bench_description(large), options, device)
+    cs.source = (build_bench_scene, (large,), {"options": options})
+    return cs
 
 
 CAMERA_MOTION = "Translate 0.25 0.1 0\nRotate 4 0 1 0"
@@ -288,7 +290,9 @@ WorldEnd
 def build_diff_scene(res: int = 256, device="cuda"):
     api = Api()
     parse_string(DIFF_SCENE.replace("{RES}", str(res)), api)
-    return build_scene(api.scene, None, device)
+    cs = build_scene(api.scene, None, device)
+    cs.source = (build_diff_scene, (res,), {})
+    return cs
 
 
 def textured_scene_text(large: bool, image: str) -> str:

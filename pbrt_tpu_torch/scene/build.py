@@ -322,14 +322,12 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
                       integrator_params, device) -> CompiledScene:
     """Host tables + specs -> CompiledScene with its tensors on `device`."""
     dev = torch.device(device)
-    # other integrator parameters are ignored, as in the reference; it
-    # renders spectrally where "spectral" is true and neither a fourier
-    # table nor a BSSRDF is present (the port raises there until its
-    # spectral mode lands); with either it renders in RGB
+    # other integrator parameters are ignored, as in the reference; the
+    # scene is spectral where "spectral" is true and neither a fourier
+    # table nor a BSSRDF is present (with either it renders in RGB)
     has_sss = bool((t["mat_sss"][:, 0] > 0).any())
-    if (_param_bool(integrator_params.get("spectral", False)) and not t["n_fourier"]
-            and not has_sss):
-        raise NotImplementedError("integrator parameter 'spectral' true is not ported")
+    spectral = (_param_bool(integrator_params.get("spectral", False)) and not t["n_fourier"]
+                and not has_sss)
     # the reference takes any other strategy name for "power"
     strategy = str(integrator_params.get("lightsamplestrategy", ["power"])[0])
     ten = lambda a: torch.as_tensor(np.array(a), device=dev)
@@ -397,7 +395,7 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         mat_kinds=tuple(int(k) for k in np.unique(t["mat_kind"])),
         has_fourier=bool(t["n_fourier"]), light_strategy=strategy,
         n_media=int(t["n_media"]), any_grid_media=bool(t["any_grid_media"]),
-        accel="kdtree" if "kd" in t else "bvh", has_subsurface=has_sss)
+        accel="kdtree" if "kd" in t else "bvh", has_subsurface=has_sss, spectral=spectral)
     if strategy == "spatial" and n_lights > 0:
         sv = integrator_params.get("spatialvoxels")
         data.light_spatial = build_spatial_distrib(
@@ -429,11 +427,15 @@ def load_scene(path: str, options=None, device="cuda", seed=0) -> CompiledScene:
     api = Api()
     api.cwd = os.path.dirname(os.path.abspath(path))
     parse_file(path, api)
-    return build_scene(api.scene, options, device, seed, api.cwd)
+    cs = build_scene(api.scene, options, device, seed, api.cwd)
+    cs.source = (load_scene, (os.path.abspath(path), options), {"seed": seed})
+    return cs
 
 
 def load_scene_string(text: str, options=None, device="cuda", cwd=".", seed=0) -> CompiledScene:
     api = Api()
     api.cwd = cwd
     parse_string(text, api, cwd)
-    return build_scene(api.scene, options, device, seed, cwd)
+    cs = build_scene(api.scene, options, device, seed, cwd)
+    cs.source = (load_scene_string, (text, options), {"cwd": cwd, "seed": seed})
+    return cs

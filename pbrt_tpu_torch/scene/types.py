@@ -143,6 +143,10 @@ class SceneFlags:
     any_grid_media: bool = False
     accel: str = "bvh"                   # the world walk: "bvh" or "kdtree"
     has_subsurface: bool = False         # some material is subsurface or kdsubsurface
+    # sampled-spectrum mode (Integrator ... "bool spectral" "true"): colours
+    # widen to N_SPECTRAL_SAMPLES channels at the material and light
+    # boundaries of path and directlighting (core/spectrum.py)
+    spectral: bool = False
 
 
 @dataclasses.dataclass
@@ -154,6 +158,10 @@ class CompiledScene:
     sampler: object      # samplers.SamplerSpec
     integrator_kind: str
     integrator_params: dict
+    # how to load the scene again on another rank of a sharded render:
+    # (loader, args, kwargs), the loader called with device= as well;
+    # None for a scene built from a description in memory
+    source: Optional[tuple] = None
 
     @property
     def device(self):

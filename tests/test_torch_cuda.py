@@ -666,3 +666,60 @@ def test_slice_forms_on_the_card_match_the_cpu(variant):
     a, c = a.cpu().numpy(), c.numpy()
     assert np.mean(np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), -1)) >= 0.99
     assert abs(a.mean() - c.mean()) <= 0.01 * abs(c.mean())
+
+
+def test_spectral_crop_on_the_card_matches_the_cpu():
+    """The small bench scene under "bool spectral" "true": the scene is
+    spectral, a 16x16 crop launches B1, is bitwise equal over two card
+    renders and within rtol 1e-3 / atol 1e-4 of the CPU's on 99% of its
+    pixels, the means within 1%."""
+    needs_cuda()
+    crop = Options(crop_window=(0.5, 0.75, 0.5, 0.75))
+    kw = dict(integrator='Integrator "path" "integer maxdepth" 4 "bool spectral" "true"')
+    b1 = T.traverse.launches
+    cs = _kd_scene("cuda", crop, **kw)
+    assert cs.flags.spectral
+    a, _, _ = render_sampler_integrator(cs, crop)
+    torch.cuda.synchronize()
+    assert T.traverse.launches > b1
+    b, _, _ = render_sampler_integrator(_kd_scene("cuda", crop, **kw), crop)
+    c, _, _ = render_sampler_integrator(_kd_scene("cpu", crop, **kw), crop)
+    assert a.shape == (16, 16, 3) and torch.equal(a, b) and float(a.sum()) > 0
+    a, c = a.cpu().numpy(), c.numpy()
+    assert np.mean(np.all(np.abs(a - c) <= 1e-4 + 1e-3 * np.abs(c), -1)) >= 0.99
+    assert abs(a.mean() - c.mean()) <= 0.01 * abs(c.mean())
+
+
+def test_resume_on_the_card_is_bit_identical(tmp_path):
+    """The small bench scene at 4 spp, a pass a sample: a checkpoint every
+    2 passes leaves one at sample 2, and the render resumed from it on the
+    card equals the straight render bit for bit."""
+    needs_cuda()
+    from pbrt_tpu_torch.utils.checkpoint import load_checkpoint
+    cs = build_bench_scene(False, "cuda")
+    lanes = len(sample_pixels(cs.film)[0])
+    want, _, passes = render_sampler_integrator(cs, Options(wavefront_size=lanes))
+    ck = str(tmp_path / "ck.npz")
+    render_sampler_integrator(cs, Options(wavefront_size=lanes, checkpoint_path=ck,
+                                          checkpoint_every=2))
+    assert passes == 4 and load_checkpoint(ck)[1] == 2
+    got, _, rest = render_sampler_integrator(
+        cs, Options(wavefront_size=lanes, checkpoint_path=ck, resume=True))
+    assert rest == 2 and torch.equal(got, want) and float(want.sum()) > 0
+
+
+def test_sharded_render_on_the_card():
+    """The small bench scene by render with devices=2 (on one card a world
+    of one rank under NCCL) and by render_sharded over two ranks (on one
+    card sharing it under gloo): each within rtol 2e-5 / atol 2e-6 of
+    render_sampler_integrator's image, the counters equal."""
+    needs_cuda()
+    from pbrt_tpu_torch.parallel import mesh as MS
+    from pbrt_tpu_torch.render import render
+    cs = build_bench_scene(False, "cuda")
+    want, cnt, _ = render_sampler_integrator(cs, Options())
+    assert MS.backend_for("cuda", MS.n_ranks_for(2, "cuda")) == "nccl"
+    assert MS.backend_for("cuda", 2) == ("gloo" if torch.cuda.device_count() == 1 else "nccl")
+    for got, cnt2, _ in (render(cs, Options(devices=2)), MS.render_sharded(cs, 2, Options())):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-6)
+        assert cnt2 == cnt

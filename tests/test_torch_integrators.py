@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import hold_ref
+from torch_port_helpers import hold_image, hold_ref, renders_as_without_spectral
 from torch_refs import cases as C
 
 from pbrt_tpu_torch.integrators.direct import li_direct
@@ -61,21 +61,7 @@ def test_li_fn_dispatches_as_the_reference(line, fn, kw):
     assert li.func is fn and li.keywords == kw
 
 
-SMOKE = """LookAt 0 0 5  0 0 0  0 1 0
-Camera "perspective" "float fov" 45
-Film "image" "integer xresolution" [8] "integer yresolution" [8]
-Sampler "random" "integer pixelsamples" 2
-Integrator "path" "integer maxdepth" 1
-WorldBegin
-LightSource "infinite" "rgb L" [0.5 0.5 0.5]
-AttributeBegin
-  Material "matte" "rgb Kd" [0.2 0.6 0.3]
-  Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
-  Shape "loopsubdiv" "integer levels" 1 "integer indices" [0 1 2 0 2 3]
-    "point P" [-1 -1 -1  1 -1 -1  1 1 -1  -1 1 -1]
-AttributeEnd
-WorldEnd
-"""
+SMOKE = C.INTEGRATOR_SMOKE
 # (form, where it goes: the directive it follows or replaces, the text)
 C2_FORMS = {
     "unnamed_integrator": ('Integrator "path" "integer maxdepth" 1',
@@ -119,9 +105,26 @@ def test_repaired_forms_render_as_without_them(form):
     ('Integrator "volpath" "bool spectral" "true"', "spectral"),
 ])
 def test_unported_forms_still_raise(line, what):
-    text = SMOKE.replace("WorldBegin", line + "\nWorldBegin")
-    with pytest.raises(NotImplementedError, match=what):
-        load_scene_string(text, device="cpu")
+    """Each integrator under "bool spectral" "true" (the forms raised
+    until the port's spectral mode) does what the reference's does: sppm
+    raises (the reference fails there too, ROADMAP C); path and
+    directlighting render spectrally and hold the reference's image
+    (hold_image); mlt (its bdpt target), whitted and volpath have no
+    spectral branch and render bit-equal to the scene without the flag."""
+    text = C.integrator_form_scene(line)
+    cs = load_scene_string(text, device="cpu")
+    assert getattr(cs.flags, what)
+    if "sppm" in line:
+        with pytest.raises(NotImplementedError, match=what):
+            render(cs)
+    elif line in C.SPECTRAL_INTEGRATOR_FORMS:
+        hold_image(render(cs)[0], C.spectral_form_image(text))
+    elif "mlt" in line:
+        renders_as_without_spectral(text.replace(
+            '"bool spectral"', '"integer bootstrapsamples" 1024 "integer chains" 256 '
+                               '"integer mutationsperpixel" 4 "bool spectral"'))
+    else:
+        renders_as_without_spectral(text)
 
 
 def test_cli_renders_every_new_integrator(tmp_path):

@@ -10,13 +10,15 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import REPO, jax_bench_scene, jax_scene_arrays, lanes, pallas_tables
+from torch_port_helpers import (REPO, hold_image, jax_bench_scene, jax_scene_arrays, lanes,
+                                pallas_tables, renders_as_without_spectral)
+from torch_refs import cases as C
 
 from pbrt_tpu.integrators.path import li_path as j_li_path
 from pbrt_tpu.scene import load_scene as j_load_scene, load_scene_string as j_load_scene_string
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.io.image_io import read_png, write_png
-from pbrt_tpu_torch.render import Options, render_sampler_integrator
+from pbrt_tpu_torch.render import Options, render, render_sampler_integrator
 from pbrt_tpu_torch.scene import load_scene, load_scene_string
 from pbrt_tpu_torch.scene.api import Api
 from pbrt_tpu_torch.scene.bench import (KNOT, KNOT_MATERIAL, SCENE, SPHERE_SCENE,
@@ -28,15 +30,7 @@ from pbrt_tpu_torch.scene.parser import parse_file
 from pbrt_tpu_torch.scene.bridge import from_jax_arrays, tables_from_jax_arrays
 from pbrt_tpu_torch.scene.build import build_tables
 
-SMOKE = """
-Camera "perspective" "float fov" 45
-Film "image" "integer xresolution" [8] "integer yresolution" [8] "string filename" "{OUT}"
-Sampler "random" "integer pixelsamples" 1
-Integrator "path" "integer maxdepth" 1
-WorldBegin
-LightSource "infinite" "rgb L" [0.5 0.5 0.5]
-WorldEnd
-"""
+SMOKE = C.PATH_SMOKE
 # the smoke scene seen from above, with two instances of a dark triangle and
 # an animated one in front of the environment
 INSTANCED_SMOKE = SMOKE.replace("Camera", "LookAt 0 0 5  0 0 0  0 1 0\nCamera").replace(
@@ -315,16 +309,16 @@ def test_smoke_scene_renders_without_jax(tmp_path):
 
 
 def test_cli_logs_a_failed_scene_and_goes_on(tmp_path, capsys):
-    """A missing file and an unported option (a spectral scene without a
-    BSSRDF) are each logged as `error rendering PATH: ...` on stderr; the
-    next scene still renders and the CLI returns 0, as the reference's
-    does."""
+    """A missing file and a form that fails in the reference too (sppm
+    under "bool spectral" "true") are each logged as `error rendering
+    PATH: ...` on stderr; the next scene still renders and the CLI
+    returns 0, as the reference's does."""
     from pbrt_tpu_torch.__main__ import main
     missing = tmp_path / "missing.pbrt"
     spectral = tmp_path / "spectral.pbrt"
     smoke = tmp_path / "smoke.pbrt"
     spectral.write_text(SMOKE.replace("{OUT}", str(tmp_path / "sp.png")).replace(
-        "WorldBegin", 'Integrator "path" "bool spectral" "true"\nWorldBegin'))
+        "WorldBegin", 'Integrator "sppm" "bool spectral" "true"\nWorldBegin'))
     smoke.write_text(SMOKE.replace("{OUT}", str(tmp_path / "smoke.png")))
     rc = main(["--device", "cpu", "--quiet", str(missing), str(spectral), str(smoke)])
     assert rc == 0
@@ -355,25 +349,17 @@ def test_png_round_trip(tmp_path):
     assert np.array_equal(got, to_srgb8(rgb))
 
 
-@pytest.mark.parametrize("directive,what", [
-    ('Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]', "spectral"),
-    ('Material "glass"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
-     "spectral"),
-    ('Material "uber" "rgb Kd" [0.6 0.4 0.3]\nShape "sphere" "float radius" 0.5', "spectral"),
-    ('MakeNamedMaterial "skin" "string type" "matte" "rgb Kd" [0.6 0.4 0.3]\n'
-     'NamedMaterial "skin"\nShape "trianglemesh" "integer indices" [0 1 2] '
-     '"point P" [0 0 0 1 0 0 0 1 0]', "spectral"),
-    ('LightSource "point" "point from" [0 2 0] "rgb I" [3 3 3]\nShape "trianglemesh" '
-     '"integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]', "spectral"),
-])
+@pytest.mark.parametrize("directive,what", [(d, "spectral") for d in C.SPECTRAL_DIRECTIVES])
 def test_unported_directives_raise(directive, what):
     """Scenes under "bool spectral" "true" whose world holds no BSSRDF
-    still raise (the reference renders them spectrally; a BSSRDF makes it
-    render in RGB, which the port does)."""
-    text = SMOKE.replace("{OUT}", "x.png").replace("WorldEnd", directive + "\nWorldEnd").replace(
-        "WorldBegin", 'Integrator "path" "bool spectral" "true"\nWorldBegin')
-    with pytest.raises(NotImplementedError, match=what):
-        load_scene_string(text, device="cpu")
+    (they raised until the port's spectral mode) render spectrally, as the
+    reference's do: the scene's flag `what` is set, and the image holds
+    the reference's (hold_image: >= 99% of pixels within rtol 1e-3 / atol
+    1e-4, the means within 1%)."""
+    text = C.directive_scene(directive)
+    cs = load_scene_string(text, device="cpu")
+    assert getattr(cs.flags, what)
+    hold_image(render(cs)[0], C.spectral_form_image(text))
 
 
 @pytest.mark.parametrize("line,what", [
@@ -385,6 +371,14 @@ def test_unported_directives_raise(directive, what):
      "spectral"),
 ])
 def test_unported_options_raise(line, what):
-    text = SMOKE.replace("{OUT}", "x.png").replace("WorldBegin", line + "\nWorldBegin")
-    with pytest.raises(NotImplementedError, match=what):
-        load_scene_string(text, device="cpu")
+    """Integrators under "bool spectral" "true" (they raised until the
+    port's spectral mode) do what the reference's do: directlighting and
+    path render spectrally and hold the reference's image (hold_image);
+    whitted, bdpt and volpath have no spectral branch and render bit-equal
+    to the scene without the flag."""
+    text = C.option_scene(line)
+    assert getattr(load_scene_string(text, device="cpu").flags, what)
+    if line in C.SPECTRAL_PATH_OPTIONS:
+        hold_image(render(load_scene_string(text, device="cpu"))[0], C.spectral_form_image(text))
+    else:
+        renders_as_without_spectral(text)

@@ -153,7 +153,7 @@ def test_li_path_matches_reference(name):
 def test_spectral_subsurface_renders_in_rgb():
     """A scene with a BSSRDF under "bool spectral" "true" renders as it does
     without the flag (the reference renders it in RGB); without a BSSRDF
-    the flag still raises."""
+    the same scene is spectral."""
     line = 'Integrator "path" "integer maxdepth" 2'
     text = scene_variant(calibration_scene("knot", line, res=8, spp=2),
                          knot_material=SUBSURFACE_KNOT, knot_line=C.CAL_KNOT_LINE)
@@ -162,9 +162,8 @@ def test_spectral_subsurface_renders_in_rgb():
     got = render(load_scene_string(text.replace(line, line + ' "bool spectral" "true"'),
                                    device="cpu"), opts)[0]
     assert float(want.sum()) > 0 and torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="spectral"):
-        load_scene_string(calibration_scene("knot", line + ' "bool spectral" "true"'),
-                          device="cpu")
+    assert load_scene_string(calibration_scene("knot", line + ' "bool spectral" "true"'),
+                             device="cpu").flags.spectral
 
 
 @pytest.mark.parametrize("material", ["subsurface", "kdsubsurface", "spectral"])

@@ -183,6 +183,36 @@ def hold_ref(L, p_film, cnt, ref):
     return L.mean()
 
 
+def hold_image(img, want):
+    """A whole render against the reference's image: >= 99% of pixels
+    within rtol 1e-3 / atol 1e-4, the means within 1%."""
+    img = np.asarray(img)
+    assert img.shape == want.shape
+    ok = np.all(np.abs(img - want) <= 1e-4 + 1e-3 * np.abs(want), axis=-1)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert abs(img.mean() - want.mean()) <= 0.01 * abs(want.mean())
+
+
+SPECTRAL_FLAG = ' "bool spectral" "true"'
+
+
+def renders_as_without_spectral(text, **options):
+    """A scene under "bool spectral" "true" whose integrator has no
+    spectral branch (whitted, volpath, bdpt, MLT's bdpt target): the
+    flag is set, and the image is bit-equal to the same scene's without
+    the flag."""
+    from pbrt_tpu_torch.render import Options, render
+    from pbrt_tpu_torch.scene import load_scene_string
+    assert SPECTRAL_FLAG in text
+    cs = load_scene_string(text, device="cpu")
+    assert cs.flags.spectral
+    got, _, _ = render(cs, Options(**options))
+    want, _, _ = render(load_scene_string(text.replace(SPECTRAL_FLAG, ""), device="cpu"),
+                        Options(**options))
+    assert float(want.sum()) > 0
+    assert torch.equal(got, want)
+
+
 def jax_scene_file(path):
     """The reference's scene file with kernel tables -> (its CPU-path scene,
     arrays, specs)."""

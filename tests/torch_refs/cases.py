@@ -166,3 +166,105 @@ def open_lens(load_lens_system, trace_np, normalize_np):
     normalize -> (lens [n,4], bounds [32,4] f32)."""
     from pbrt_tpu_torch.scene import bench as Bn
     return Bn.open_lens(load_lens_system, trace_np, normalize_np)
+
+
+# ---- spectral mode (tests/test_torch_spectral.py): li_path and li_direct
+# under "bool spectral" "true", and MLT's path target ----
+SPECTRAL = ' "bool spectral" "true"'
+# name: (calibration scene, integrator kind, directlighting strategy)
+SPECTRAL_CASES = {"spectral_path_knot": ("knot", "path", None),
+                  "spectral_path_env": ("env", "path", None),
+                  "spectral_directlighting_all_knot": ("knot", "directlighting", "all"),
+                  "spectral_directlighting_one_knot": ("knot", "directlighting", "one"),
+                  "spectral_directlighting_all_env": ("env", "directlighting", "all"),
+                  "spectral_mlt_path_knot": ("knot", "mlt", None)}
+
+
+def spectral_case_scene(name):
+    """The scene text of a SPECTRAL_CASES case: its calibration scene
+    under its integrator at DEPTH with the spectral flag (the MLT case at
+    SMALL_RES under the path target)."""
+    scene, kind, strategy = SPECTRAL_CASES[name]
+    if kind == "mlt":
+        return small_scene(scene, mlt_line("path") + SPECTRAL)
+    return case_scene(scene, kind, strategy).replace(
+        integrator_line(kind, strategy=strategy),
+        integrator_line(kind, strategy=strategy) + SPECTRAL)
+
+
+# ---- the forms under "bool spectral" "true" that the port refused before
+# its spectral mode (tests/test_torch_path.py, tests/test_torch_integrators.py):
+# the reference's images of those it renders spectrally, in SPECTRAL_FORMS.npz
+# as <form>_scene and <form>_image ----
+SPECTRAL_FORMS = "spectral_forms"
+PATH_SMOKE = """
+Camera "perspective" "float fov" 45
+Film "image" "integer xresolution" [8] "integer yresolution" [8] "string filename" "{OUT}"
+Sampler "random" "integer pixelsamples" 1
+Integrator "path" "integer maxdepth" 1
+WorldBegin
+LightSource "infinite" "rgb L" [0.5 0.5 0.5]
+WorldEnd
+"""
+INTEGRATOR_SMOKE = """LookAt 0 0 5  0 0 0  0 1 0
+Camera "perspective" "float fov" 45
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+Sampler "random" "integer pixelsamples" 2
+Integrator "path" "integer maxdepth" 1
+WorldBegin
+LightSource "infinite" "rgb L" [0.5 0.5 0.5]
+AttributeBegin
+  Material "matte" "rgb Kd" [0.2 0.6 0.3]
+  Shape "trianglemesh" "integer indices" [0 1 2] "point P" [-1 -1 0  1 -1 0  0 1 0]
+  Shape "loopsubdiv" "integer levels" 1 "integer indices" [0 1 2 0 2 3]
+    "point P" [-1 -1 -1  1 -1 -1  1 1 -1  -1 1 -1]
+AttributeEnd
+WorldEnd
+"""
+SPECTRAL_DIRECTIVES = (
+    'Shape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
+    'Material "glass"\nShape "trianglemesh" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
+    'Material "uber" "rgb Kd" [0.6 0.4 0.3]\nShape "sphere" "float radius" 0.5',
+    'MakeNamedMaterial "skin" "string type" "matte" "rgb Kd" [0.6 0.4 0.3]\n'
+    'NamedMaterial "skin"\nShape "trianglemesh" "integer indices" [0 1 2] '
+    '"point P" [0 0 0 1 0 0 0 1 0]',
+    'LightSource "point" "point from" [0 2 0] "rgb I" [3 3 3]\nShape "trianglemesh" '
+    '"integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]')
+SPECTRAL_PATH_OPTIONS = (
+    'Integrator "directlighting" "string strategy" "one" "bool spectral" "true"',
+    'Integrator "path" "string lightsamplestrategy" "uniform" "bool spectral" "true"')
+SPECTRAL_INTEGRATOR_FORMS = ('Integrator "path" "bool spectral" "true"',
+                             'Integrator "directlighting" "bool spectral" "true"')
+
+
+def directive_scene(directive):
+    """PATH_SMOKE with a world directive under path and the spectral flag."""
+    return PATH_SMOKE.replace("{OUT}", "x.png").replace(
+        "WorldEnd", directive + "\nWorldEnd").replace(
+        "WorldBegin", 'Integrator "path" "bool spectral" "true"\nWorldBegin')
+
+
+def option_scene(line):
+    """PATH_SMOKE under another Integrator line."""
+    return PATH_SMOKE.replace("{OUT}", "x.png").replace("WorldBegin", line + "\nWorldBegin")
+
+
+def integrator_form_scene(line):
+    """INTEGRATOR_SMOKE under another Integrator line."""
+    return INTEGRATOR_SMOKE.replace("WorldBegin", line + "\nWorldBegin")
+
+
+def spectral_form_scenes():
+    """{form: scene text} of the forms the reference renders spectrally."""
+    out = {f"directive_{i}": directive_scene(d) for i, d in enumerate(SPECTRAL_DIRECTIVES)}
+    out.update({f"option_{i}": option_scene(line) for i, line in enumerate(SPECTRAL_PATH_OPTIONS)})
+    out.update({f"integrator_{i}": integrator_form_scene(line)
+                for i, line in enumerate(SPECTRAL_INTEGRATOR_FORMS)})
+    return out
+
+
+def spectral_form_image(text):
+    """The reference's image of a spectral form's scene text."""
+    with np.load(os.path.join(HERE, SPECTRAL_FORMS + ".npz")) as z:
+        name = next(k[:-6] for k in z.files if k.endswith("_scene") and str(z[k]) == text)
+        return z[name + "_image"]

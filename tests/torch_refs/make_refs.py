@@ -23,6 +23,11 @@ render_sppm_point stores
 the 4-iteration image and the overflow count. The path cases (PATH_CASES)
 store li_path's L, p_film, ray weights and counters of 1,024 lanes at
 depth 3; path_realistic's camera has its lens opened (cases.open_lens).
+The spectral cases (SPECTRAL_CASES) store li_path's or li_direct's
+outputs the same way under "bool spectral" "true", and the MLT one
+_eval_target's L and film positions; spectral_forms the reference's
+render (pbrt_tpu.render.render) of each spectral form's scene
+(cases.spectral_form_scenes).
 """
 from __future__ import annotations
 
@@ -331,6 +336,40 @@ def sppm_render_case():
           overflow=np.float64(STATS.counters.get(key, 0.0)))
 
 
+def spectral_case(name, seed):
+    from pbrt_tpu.integrators import mlt as M
+    from pbrt_tpu.integrators.direct import li_direct
+    from pbrt_tpu.integrators.path import li_path
+    from pbrt_tpu.scene import load_scene_string
+    _, kind, strategy = C.SPECTRAL_CASES[name]
+    text = C.spectral_case_scene(name)
+    jcs = load_scene_string(text)
+    assert jcs.flags.spectral
+    if kind == "mlt":
+        u, _ = C.mlt_inputs(seed, M._n_dims(C.DEPTH))
+        L, p_film = jax.jit(lambda a: M._eval_target(jcs, a, C.DEPTH))(jnp.asarray(u))
+        _save(name, scene=text, seed=seed, L=np.asarray(L), p_film=np.asarray(p_film))
+        return
+    li, kw = (li_path, {}) if kind == "path" else (li_direct, {"strategy": strategy})
+    px, py, s = C.case_lanes(text, seed)
+    f = jax.jit(lambda a, b, c: li(jcs, a, b, c, max_depth=C.DEPTH, with_stats=True, **kw))
+    L, p_film, w, cnt = f(jnp.asarray(px), jnp.asarray(py), jnp.asarray(s))
+    _save(name, scene=text, px=px, py=py, s=s, seed=seed, L=np.asarray(L),
+          p_film=np.asarray(p_film), w=np.asarray(w), **_counts(cnt))
+
+
+def spectral_forms_case():
+    from pbrt_tpu.render import render
+    from pbrt_tpu.scene import load_scene_string
+    out = {}
+    for form, text in C.spectral_form_scenes().items():
+        jcs = load_scene_string(text)
+        assert jcs.flags.spectral, form
+        out[f"{form}_scene"] = text
+        out[f"{form}_image"] = np.asarray(render(jcs), np.float32)
+    _save(C.SPECTRAL_FORMS, **out)
+
+
 def all_cases():
     out = {}
     for i, (name, scene, kind, st) in enumerate(C.LI_CASES):
@@ -356,6 +395,9 @@ def all_cases():
     out[C.SPPM_RENDER[0]] = sppm_render_case
     for i, name in enumerate(C.PATH_CASES):
         out[name] = functools.partial(path_case, name, 50 + i)
+    for i, name in enumerate(C.SPECTRAL_CASES):
+        out[name] = functools.partial(spectral_case, name, 60 + i)
+    out[C.SPECTRAL_FORMS] = spectral_forms_case
     return out
 
 
