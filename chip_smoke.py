@@ -179,12 +179,15 @@ Phases (any failure raises and exits non-zero; nothing catches it):
      B1 5 launches a pass, as the static scene's, an image other than
      phase 5's, the crop checks; under bdpt (B1 28 a pass) the checks of
      phase 22's render;
-  28. the kd-tree: K1 held bit-equal (t, triangle, b1, b2) to its plain
-     walk on the large knot's tree, on 131,072 camera rays and on a
-     262,144-ray pair launch with an any-hit half; both timed with CUDA
-     events beside the plain walk, with their bound from the node
-     records, leaf slots and prim indices the plain walk needed (each read
-     once) and its node visits and triangle tests; then the large bench
+  28. the kd-tree: the large knot's tree's depth and its walk tables'
+     device bytes; K1 held bit-equal (t, triangle, b1, b2) to its plain
+     walk on that tree, on 131,072 camera rays and on a 262,144-ray pair
+     launch with an any-hit half, and on bench.deep_kd_case's 72-level
+     tree (its diagonal rays push past the stack's 64 entries, so the drop
+     and clamp rules decide their hits); each timed with CUDA events beside the plain walk, with its
+     bound from the node records, leaf slots and triangles the plain walk
+     needed (each read once), its node visits (mean, p50, p99, max a ray)
+     and triangle tests; then the large bench
      scene under Accelerator "kdtree" (K1 5 launches a pass, no BVH kernel): its
      image within rtol 1e-3 / atol 1e-4 of phase 5's BVH image on 99% of
      pixels, the means within 1%, the profile and the crop checks;
@@ -582,18 +585,43 @@ def bound_ms(counts, n, ray_bytes, inst_bytes=0, enter_ops=0, fixed_bytes=0):
 
 def kd_bound_ms(counts, n):
     """bound_ms for K1 from the plain kd walk's counts on n rays: the bytes
-    it must move, each entry it needs read once (a node record's 12 bytes
-    of flags, split and child or prim range; a tested leaf slot's nine
-    vertex floats; a hit's prim index; the rays in, o, d, t_max and the
-    any-hit flag, and the hits out, t, triangle, b1 and b2) and its fp32
-    operations (about 8 a node visit, 60 a triangle test, counted from
-    csrc/kdtree_traverse.cu) -> (ms, "operations" or "bytes", bytes,
-    operations)."""
-    nodes, slots, indices = counts.touched()
-    byts = nodes * 12 + slots * 36 + indices * 4 + n * (24 + 4 + 1 + 16)
+    it must move, each entry it needs read once (a node record's 8 bytes;
+    a tested leaf slot's 4-byte prim index; a tested triangle's nine vertex
+    floats, once a distinct triangle however many leaves list it; the rays
+    in, o, d, t_max and the any-hit flag, and the hits out, t, triangle, b1
+    and b2) and its fp32 operations (about 8 a node visit, 60 a triangle
+    test, counted from csrc/kdtree_traverse.cu) -> (ms, "operations" or
+    "bytes", bytes, operations)."""
+    nodes, slots, prims = counts.touched()
+    byts = nodes * 8 + slots * 4 + prims * 36 + n * (24 + 4 + 1 + 16)
     ops = counts.visits * 8 + counts.tri_tests * 60
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (byts, ops)
+
+
+def kd_launches(cs, dev):
+    """K1's launches at the main path's shapes on a kd scene: the camera
+    launch (131,072 rays at 256x256, closest-hit) and the pair launch ->
+    {"camera": rays, "pair": rays}, rays = [o, d, t_max, anyhit]."""
+    o, d, _ = camera_launch(cs, dev)
+    n_cam = o.shape[0]
+    return {"camera": [o, d, torch.full((n_cam,), float("inf"), device=dev),
+                       torch.zeros(n_cam, dtype=torch.uint8, device=dev)],
+            "pair": pair_launch(n_cam, dev)}
+
+
+def deep_kd_launch(dev):
+    """bench.deep_kd_case on the card -> (its KdTree, [o, d, t_max, anyhit])."""
+    tab, tp, *rays = Bn.deep_kd_case()
+    t = [torch.as_tensor(a, device=dev) for a in (tp[:, 0], tp[:, 1], tp[:, 2], *rays)]
+    return K.KdTree.from_tables(tab, *t[:3]), t[3:]
+
+
+def visit_quantiles(counts):
+    """-> "p50 a, p99 b, max c" of a plain kd walk's node visits a ray."""
+    v = counts.ray_visits.double()
+    q = torch.quantile(v, torch.tensor([0.5, 0.99], dtype=torch.float64, device=v.device))
+    return f"p50 {float(q[0]):.0f}, p99 {float(q[1]):.0f}, max {int(v.max())}"
 
 
 def kernel_op(name):
@@ -1351,9 +1379,10 @@ def moving_camera(dev, card, still):
 
 
 def kd_phase(dev, card, bvh_img):
-    """Phase 28: K1 against its plain walk, then the large bench scene under
-    the kd-tree -> (K1 launches of the render, max |dt| over both launches,
-    K1 ms and plain ms on the pair launch, its bound (ms, by))."""
+    """Phase 28: K1 against its plain walk on the camera and pair launches
+    and on bench.deep_kd_case's 72-level tree, then the large bench scene
+    under the kd-tree -> (K1 launches of the render, max |dt| over the
+    launches, K1 ms and plain ms on the pair launch, its bound (ms, by))."""
     desc = Bn.bench_variant_description(True, accelerator="kdtree")
     t0 = time.time()
     tables = build_tables(desc)
@@ -1361,22 +1390,23 @@ def kd_phase(dev, card, bvh_img):
     cs = build_scene(desc, None, dev, tables=tables)
     kd = cs.data.kd
     print(f"kd-tree of the large knot built in {built:.2f} s (with the BVH and the scene's "
-          f"tables): {kd.n_nodes} nodes, {kd.prim_indices.shape[0]} leaf prims")
-    o, d, _ = camera_launch(cs, dev)
-    n_cam = o.shape[0]
-    cam = [o, d, torch.full((n_cam,), float("inf"), device=dev),
-           torch.zeros(n_cam, dtype=torch.uint8, device=dev)]
+          f"tables): {kd.n_nodes} nodes, {kd.prim_indices.shape[0]} leaf prims, "
+          f"{kd.tris.shape[0]} triangles, depth {kd.depth}; walk tables {kd.device_bytes()} "
+          f"bytes on the device")
+    launches = kd_launches(cs, dev)
+    deep_kd, deep_rays = deep_kd_launch(dev)
     out, err = {}, 0.0
-    for name, rays in (("camera", cam), ("pair", pair_launch(n_cam, dev))):
+    for name, tree, rays in (("camera", kd, launches["camera"]), ("pair", kd, launches["pair"]),
+                             ("deep-tree", deep_kd, deep_rays)):
         before = K.intersect_kdtree.launches
-        got = K.intersect_kdtree(kd, *rays)
+        got = K.intersect_kdtree(tree, *rays)
         torch.cuda.synchronize()
         if K.intersect_kdtree.launches != before + 1:
             raise AssertionError("the K1 launch counter did not advance")
         counts = K.KdCounts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = K.intersect_kdtree_plain(kd, *rays, counts)
+        want = K.intersect_kdtree_plain(tree, *rays, counts)
         end.record()
         torch.cuda.synchronize()
         plain = start.elapsed_time(end)
@@ -1385,18 +1415,18 @@ def kd_phase(dev, card, bvh_img):
                 raise AssertionError(f"K1 and its plain walk differ in {what} ({name} launch)")
         hit = got[1] >= 0
         if not bool(hit.any()):
-            raise AssertionError(f"no ray of the {name} launch hit the knot")
+            raise AssertionError(f"no ray of the {name} launch hit")
         err = max(err, float(torch.where(got[0] == want[0], 0.0, (got[0] - want[0]).abs()).max()))
-        ms = min(cuda_ms(lambda: K.intersect_kdtree(kd, *rays), 10) for _ in range(2))
+        ms = min(cuda_ms(lambda: K.intersect_kdtree(tree, *rays), 10) for _ in range(2))
         n = rays[0].shape[0]
         bound = kd_bound_ms(counts, n)
         touched = counts.touched()
-        print(f"K1 {name} launch, {n} rays: bit-equal to the plain walk ({float(hit.float().mean()):.4f}"
-              f" hit, max |dt| {err}); K1 {ms:.3f} ms, plain {plain:.3f} ms; "
-              f"{counts.visits / n:.2f} node visits and {counts.tri_tests / n:.2f} triangle tests "
-              f"a ray; {touched[0]} node records, {touched[1]} leaf slots and {touched[2]} prim "
-              f"indices needed; bound {bound[0]:.5f} ms ({bound[1]}: {bound[2]} bytes, "
-              f"{bound[3]} operations)  [{card}]")
+        print(f"K1 {name} launch, {n} rays (tree depth {tree.depth}): bit-equal to the plain "
+              f"walk ({float(hit.float().mean()):.4f} hit, max |dt| {err}); K1 {ms:.3f} ms, "
+              f"plain {plain:.3f} ms; {counts.visits / n:.2f} node visits ({visit_quantiles(counts)}"
+              f") and {counts.tri_tests / n:.2f} triangle tests a ray; {touched[0]} node records, "
+              f"{touched[1]} leaf slots and {touched[2]} triangles needed; bound {bound[0]:.5f} ms "
+              f"({bound[1]}: {bound[2]} bytes, {bound[3]} operations)  [{card}]")
         out[name] = (ms, plain, bound)
     want = {"kdtree_traverse": 5}
     img, _, passes, wall = timed_render("kd-tree", cs, want, card)

@@ -67,41 +67,82 @@ class KdTables:
         return self.flags.shape[0]
 
 
+def tree_depth(flags: np.ndarray, above_child: np.ndarray) -> int:
+    """The most interior nodes on any path from the root to a leaf (0 for a
+    tree that is one leaf): a walk's stack never holds more entries, since
+    each entry is the far child of an interior node above the walk's node."""
+    level, depth = np.zeros(1, np.int64), 0
+    while True:
+        inner = level[flags[level] != LEAF]
+        if inner.size == 0:
+            return depth
+        depth += 1
+        level = np.concatenate([inner + 1, above_child[inner].astype(np.int64)])
+
+
+def node_records(tab: KdTables) -> np.ndarray:
+    """The builder's tables as 8-byte node records [M,2] i32, pbrt-v3's
+    KdAccelNode: word 0 the split's float bits (interior) or the prim
+    offset (leaf); word 1 the flags in its low 2 bits and, above them, the
+    above child (interior) or the prim count (leaf)."""
+    leaf = tab.flags == LEAF
+    high = np.where(leaf, tab.prim_count, tab.above_child).astype(np.int64)
+    if high.size and (high.min() < 0 or high.max() >= 1 << 29):
+        raise ValueError("a child index or prim count does not fit in 29 bits")
+    w0 = np.where(leaf, tab.prim_offset, tab.split_pos.view(np.int32))
+    w1 = (high << 2 | tab.flags).astype(np.int32)
+    return np.ascontiguousarray(np.stack([w0, w1], -1), np.int32)
+
+
+def node_fields(recs):
+    """8-byte node records [K,2] i32 (numpy or torch) -> (flags, word 0,
+    word 1 >> 2): word 0 holds the split's bits or the prim offset, the
+    last the above child or the prim count."""
+    return recs[:, 1] & 3, recs[:, 0], recs[:, 1] >> 2
+
+
 @dataclasses.dataclass
 class KdTree:
     """What the walks read, on one device (`from_tables`):
 
-    recs [M,4] i32       per node (flags, split bits, above child, 0) for an
-                         interior node, (3, prim offset, prim count, 0) for a
-                         leaf: one 16-byte load a node
-    leaf_tris [P,12] f32 the vertices of prim_indices' triangles, in list
-                         order (p0 xyz, p1 xyz, p2 xyz, 3 pad)
-    prim_indices [P] i32 as in KdTables
+    nodes [M,2] i32      the 8-byte node records of `node_records`: one
+                         8-byte load a node, the below child node + 1
+    prim_indices [P] i32 as in KdTables: a leaf's triangle rows
+    tris [T,12] f32      each world triangle's vertices once (p0 xyz, p1 xyz,
+                         p2 xyz, 3 pad), reached through prim_indices
     world_lo, world_hi   [3] np.float32 the world box
     """
-    recs: torch.Tensor
-    leaf_tris: torch.Tensor
+    nodes: torch.Tensor
     prim_indices: torch.Tensor
+    tris: torch.Tensor
     world_lo: np.ndarray
     world_hi: np.ndarray
 
     @property
     def n_nodes(self) -> int:
-        return self.recs.shape[0]
+        return self.nodes.shape[0]
+
+    @property
+    def depth(self) -> int:
+        """`tree_depth` of the records (read back to the host): it bounds
+        the entries a walk pushes."""
+        flags, _, high = node_fields(self.nodes.cpu().numpy())
+        return tree_depth(flags, high)
+
+    def device_bytes(self) -> int:
+        """The bytes of the walk's tables on the device."""
+        return sum(x.numel() * x.element_size() for x in (self.nodes, self.prim_indices,
+                                                          self.tris))
 
     @classmethod
     def from_tables(cls, tab: KdTables, tri_p0, tri_p1, tri_p2) -> "KdTree":
         """The walks' tables from the builder's and the triangles' vertices
         [T,3] (tensors on the device the tree goes to)."""
-        leaf = tab.flags == LEAF
-        recs = np.stack([tab.flags, np.where(leaf, tab.prim_offset, tab.split_pos.view(np.int32)),
-                         np.where(leaf, tab.prim_count, tab.above_child),
-                         np.zeros_like(tab.flags)], -1)
         dev = tri_p0.device
-        idx = torch.as_tensor(tab.prim_indices, dtype=torch.int64, device=dev)
-        lt = torch.zeros((idx.shape[0], 12), device=dev)
-        lt[:, 0:3], lt[:, 3:6], lt[:, 6:9] = tri_p0[idx], tri_p1[idx], tri_p2[idx]
-        return cls(torch.as_tensor(recs, device=dev), lt, idx.to(torch.int32),
+        tris = torch.zeros((tri_p0.shape[0], 12), device=dev)
+        tris[:, 0:3], tris[:, 3:6], tris[:, 6:9] = tri_p0, tri_p1, tri_p2
+        return cls(torch.as_tensor(node_records(tab), device=dev),
+                   torch.as_tensor(tab.prim_indices, dtype=torch.int32, device=dev), tris,
                    tab.world_lo, tab.world_hi)
 
 
@@ -149,31 +190,32 @@ def build_kdtree(prim_lo: np.ndarray, prim_hi: np.ndarray,
 
 
 class KdCounts:
-    """What a plain walk did, summed over its rays: node visits (one a
-    lockstep step a ray is live) and triangle tests, and which node
-    records, leaf slots and prim indices it needed read (a node behind the
-    best hit needs none); a kernel's bound on the same rays is computed
-    from them."""
+    """What a plain walk did: node visits (one a lockstep step a ray is
+    live), summed and per ray (ray_visits [N] i64), and triangle tests, and
+    which node records, leaf slots (prim indices) and triangles it needed
+    read (a node behind the best hit needs none); a kernel's bound on the
+    same rays is computed from them."""
 
     def __init__(self):
         self.visits = self.tri_tests = 0
-        self.nodes = self.slots = self.indices = None
+        self.ray_visits = self.nodes = self.slots = self.prims = None
 
-    def masks(self, kd: KdTree):
-        """-> the (nodes [M], slots [P], indices [P]) bool masks a walk
-        sets, made at the first call."""
+    def start(self, kd: KdTree, n: int):
+        """-> the (nodes [M], slots [P], triangles [T]) bool masks a walk of
+        n rays sets, made at the first call, and ray_visits."""
         if self.nodes is None:
-            dev = kd.recs.device
+            dev = kd.nodes.device
             self.nodes = torch.zeros(kd.n_nodes, dtype=torch.bool, device=dev)
             self.slots = torch.zeros(kd.prim_indices.shape[0], dtype=torch.bool, device=dev)
-            self.indices = torch.zeros_like(self.slots)
-        return self.nodes, self.slots, self.indices
+            self.prims = torch.zeros(kd.tris.shape[0], dtype=torch.bool, device=dev)
+            self.ray_visits = torch.zeros(n, dtype=torch.int64, device=dev)
+        return self.nodes, self.slots, self.prims
 
     def touched(self):
-        """-> (node records, leaf slots tested, prim indices read), each
+        """-> (node records, leaf slots tested, triangles tested), each
         counted once."""
         return tuple(0 if m is None else int(m.sum())
-                     for m in (self.nodes, self.slots, self.indices))
+                     for m in (self.nodes, self.slots, self.prims))
 
 
 def _clip(kd: KdTree, o, d, t_max):
@@ -197,8 +239,9 @@ def intersect_kdtree_plain(kd: KdTree, o, d, t_max, anyhit, counts: KdCounts = N
     node a step, all rays together; a leaf of more than KD_LEAF_CHUNK prims
     takes several steps (a per-ray cursor). The rays that finished are
     dropped from the step's tensors once they are half of them (the walk of
-    each ray is its own, so this changes no result). kd must carry
-    leaf_tris. -> (t, tri, b1, b2)."""
+    each ray is its own, so this changes no result). A leaf slot's prim
+    index names the triangle row whose vertices it tests. -> (t, tri, b1,
+    b2)."""
     n = o.shape[0]
     dev = o.device
     inv_d, tmin, tmax, active = _clip(kd, o, d, t_max)
@@ -221,49 +264,52 @@ def intersect_kdtree_plain(kd: KdTree, o, d, t_max, anyhit, counts: KdCounts = N
             st[k] = st[k][keep]
 
     retire(st["active"])
-    lt = kd.leaf_tris
-    marks = None if counts is None else counts.masks(kd)
+    pid = kd.prim_indices.to(torch.int64)
+    marks = None if counts is None else counts.start(kd, n)
     while st["ids"].numel():
         o, d, inv_d = st["o"], st["d"], st["inv_d"]
         tmin, tmax, act, node, sp, cursor = (st[k] for k in (
             "tmin", "tmax", "active", "node", "sp", "cursor"))
         t_best, tri_best, b1b, b2b = st["t_best"], st["tri_best"], st["b1"], st["b2"]
         lanes = torch.arange(node.shape[0], device=dev)
-        rec = kd.recs[node]
-        fl = rec[:, 0].to(torch.int64)
+        fl, word0, word1 = node_fields(kd.nodes[node])
+        # word 1 >> 2 is a leaf's prim count and an interior node's above child
+        fl, offs, high = fl.to(torch.int64), word0.to(torch.int64), word1.to(torch.int64)
         behind = tmin > t_best
         is_leaf = (fl == LEAF) & act & ~behind
         interior = act & ~is_leaf & ~behind
-        offs, cnt = rec[:, 1].to(torch.int64), rec[:, 2].to(torch.int64)
         for i in range(KD_LEAF_CHUNK):
             j = cursor + i
-            valid = is_leaf & (j < cnt)
+            valid = is_leaf & (j < high)
             sidx = torch.where(valid, offs + j, 0)
-            tr = lt[sidx]
+            prim = pid[sidx]
+            tr = kd.tris[prim]
             hit, t, _, b1, b2 = intersect_tri(tr[:, 0:3], tr[:, 3:6], tr[:, 6:9], o, d, t_best)
             closer = valid & hit
             t_best = torch.where(closer, t, t_best)
-            tri_best = torch.where(closer, sidx, tri_best)
+            tri_best = torch.where(closer, prim, tri_best)
             b1b = torch.where(closer, b1, b1b)
             b2b = torch.where(closer, b2, b2b)
             if counts is not None:
                 counts.tri_tests += int(valid.sum())
                 marks[1][sidx[valid]] = True
+                marks[2][prim[valid]] = True
         if counts is not None:
             counts.visits += int(act.sum())
+            counts.ray_visits[st["ids"][act]] += 1
             marks[0][node[act & ~behind]] = True
         cursor_new = cursor + KD_LEAF_CHUNK
-        leaf_done = is_leaf & (cursor_new >= cnt)
+        leaf_done = is_leaf & (cursor_new >= high)
 
         ax = torch.clamp(fl, 0, 2)[:, None]
         o_ax = torch.gather(o, 1, ax)[:, 0]
         inv_ax = torch.gather(inv_d, 1, ax)[:, 0]
         d_ax = torch.gather(d, 1, ax)[:, 0]
-        split = rec[:, 1].view(torch.float32)
+        split = word0.view(torch.float32)
         t_plane = (split - o_ax) * inv_ax
         below_first = (o_ax < split) | ((o_ax == split) & (d_ax <= 0.0))
         below = node + 1
-        above = rec[:, 2].to(torch.int64)
+        above = high
         first = torch.where(below_first, below, above)
         second = torch.where(below_first, above, below)
         only_first = (t_plane > tmax) | (t_plane <= 0.0)
@@ -298,12 +344,7 @@ def intersect_kdtree_plain(kd: KdTree, o, d, t_max, anyhit, counts: KdCounts = N
         live = int(st["active"].sum())
         if 2 * live <= st["active"].shape[0]:
             retire(st["active"])
-    pid = kd.prim_indices.to(torch.int64)
-    tb = out["tri_best"]
-    if counts is not None:
-        marks[2][tb[tb >= 0]] = True
-    tri = torch.where(tb >= 0, pid[torch.clamp(tb, min=0)], -1).to(torch.int32)
-    return out["t_best"], tri, out["b1"], out["b2"]
+    return out["t_best"], out["tri_best"].to(torch.int32), out["b1"], out["b2"]
 
 
 def _launch(kd: KdTree, o, d, t_max, anyhit):
@@ -312,9 +353,9 @@ def _launch(kd: KdTree, o, d, t_max, anyhit):
     for name, x, dt, shp in (
             ("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
             ("t_max", t_max, torch.float32, (n,)), ("anyhit", anyhit, torch.uint8, (n,)),
-            ("recs", kd.recs, torch.int32, (kd.n_nodes, 4)),
-            ("leaf_tris", kd.leaf_tris, torch.float32, (kd.prim_indices.shape[0], 12)),
-            ("prim_indices", kd.prim_indices, torch.int32, (kd.prim_indices.shape[0],))):
+            ("nodes", kd.nodes, torch.int32, (kd.n_nodes, 2)),
+            ("prim_indices", kd.prim_indices, torch.int32, (kd.prim_indices.shape[0],)),
+            ("tris", kd.tris, torch.float32, (kd.tris.shape[0], 12))):
         _check(name, x, dt, shp, dev)
     out = [torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
            torch.empty(n, device=dev), torch.empty(n, device=dev)]
@@ -327,7 +368,7 @@ def _launch(kd: KdTree, o, d, t_max, anyhit):
     lo, hi = (float(v) for v in kd.world_lo), (float(v) for v in kd.world_hi)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(kd.recs.data_ptr(), kd.leaf_tris.data_ptr(), kd.prim_indices.data_ptr(),
+        err = fn(kd.nodes.data_ptr(), kd.prim_indices.data_ptr(), kd.tris.data_ptr(),
                  o.data_ptr(), d.data_ptr(), t_max.data_ptr(), anyhit.data_ptr(), n,
                  *lo, *hi, *(x.data_ptr() for x in out), stream)
     if err != 0:

@@ -8,25 +8,39 @@
 // intersect_kdtree_plain, the PyTorch version this kernel must match bit for
 // bit in t, triangle, b1 and b2.
 //
-// Design: one thread per ray walks the tree as a loop, with its own stack of
-// kStack entries in local memory (768 bytes). Within the loop it keeps the
-// reference's order exactly, so ties resolve to the same triangle: the
-// world-box clip with the far factor 1.00000024 and the 1e-20 guards on
-// 1/d; "behind" (tmin > t_best) tested before anything else; the near child
-// below the split where o < split, or o == split and d <= 0; only-first
-// (t_plane > tmax or t_plane <= 0) before only-second (t_plane < tmin); a
-// leaf's prims in list order, kChunk at a time, an any-hit ray stopping
-// after the chunk that hit; a push past the stack dropped (its count still
-// rises) and a pop past it reading the last entry. A node is one 16-byte
-// record, (flags, split bits, above child) or (3, prim offset, prim count);
-// a leaf prim's vertices are 48 bytes in list order.
+// Order of tests: the reference's, exactly, so ties resolve to the same
+// triangle: the world-box clip with the far factor 1.00000024 and the 1e-20
+// guards on 1/d; "behind" (tmin > t_best) tested before anything else; the
+// near child below the split where o < split, or o == split and d <= 0;
+// only-first (t_plane > tmax or t_plane <= 0) before only-second (t_plane <
+// tmin); a leaf's prims in list order, kChunk at a time, an any-hit ray
+// stopping after the chunk that hit; a push past kStack entries dropped (its
+// count still rises) and a pop past them reading the last entry.
 //
-// What bounds it: latency. Each node's record decides the next address, the
-// rays of a warp walk different nodes and leaves, and the stack lives in
-// local memory, so the loads neither coalesce nor overlap. Its bound from
-// bytes and operations is far below its time; this first kernel keeps the
-// simple loop, and a later one can move the stack's top to registers, sort
-// rays, or walk leaves warp-wide.
+// What bounds it: latency. Each node's record decides the next address, so a
+// ray's steps are a chain of dependent loads, and a launch lasts about as
+// long as its slowest warps (a ray of the bench scene makes up to about a
+// thousand node visits; the 1% of camera rays with the most visits, launched
+// alone, take as long as the whole launch). A warp steps at the pace of the
+// slowest load of its active lanes, so a warp whose 32 lanes all walk long
+// chains (the grazing floor rays of a camera launch lie next to each other in
+// pixel order) is far slower than one long ray among short ones. The design:
+//   - rays spread over warps: lane l of warp w takes ray l * n_warps + w, so
+//     a launch's neighbouring rays, which walk alike, go to different warps
+//     and each long ray shares its warp with short ones;
+//   - tables that stay in the 50 MB L2: 8-byte node records (pbrt-v3's
+//     KdAccelNode: the split's bits or the prim offset, then the flags in 2
+//     bits under the above child or the prim count; the below child is
+//     node + 1), read with __ldg, and one vertex row a triangle (48 bytes),
+//     reached through the leaf's prim indices, so that a triangle listed in
+//     many leaves sits at one address;
+//   - the ray's axis values picked with selects, not indexed from arrays in
+//     local memory;
+//   - a while-while loop: interior steps until a leaf, then the leaf's
+//     chunks, so that a warp's lanes run the same kind of step together.
+// The todo stack stays a private array in local memory (768 bytes): a stack
+// in shared memory, whole or only its first 8 or 16 entries, cut the blocks
+// an SM holds and was slower on every launch measured (PERF.md).
 //
 // Arithmetic: the watertight test of shapes/triangle.py::intersect_tri with
 // its differences of products; build with --fmad=false, so that no product
@@ -39,7 +53,7 @@ namespace {
 
 constexpr int kStack = 64;     // kdtree.py KD_STACK
 constexpr int kChunk = 4;      // kdtree.py KD_LEAF_CHUNK
-constexpr int kThreads = 64;
+constexpr int kThreads = 128;   // 32, 64 and 256 measured no faster (PERF.md)
 constexpr int kLeaf = 3;
 
 __device__ __forceinline__ float pick3(float x, float y, float z, int k) {
@@ -86,139 +100,138 @@ __device__ __forceinline__ bool tri_test(const Ray& r, const float* p, float t_m
   return true;
 }
 
+__device__ __forceinline__ float guard_inv(float v) {
+  return 1.0f / (fabsf(v) < 1e-20f ? (v < 0.0f ? -1e-20f : 1e-20f) : v);
+}
+
 __global__ void __launch_bounds__(kThreads)
-kd_kernel(const int4* __restrict__ recs, const float4* __restrict__ leaf_tris,
-          const int* __restrict__ prim_indices, const float* __restrict__ o,
+kd_kernel(const int2* __restrict__ nodes, const int* __restrict__ prim_indices,
+          const float4* __restrict__ tris, const float* __restrict__ o,
           const float* __restrict__ d, const float* __restrict__ tmax_in,
           const uint8_t* __restrict__ anyhit, int n, float wlo0, float wlo1, float wlo2,
           float whi0, float whi1, float whi2, float* __restrict__ t_out,
           int* __restrict__ tri_out, float* __restrict__ b1_out, float* __restrict__ b2_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // lane l of warp w takes ray l * n_warps + w (the grid holds 32 n_warps threads)
+  const int g = blockIdx.x * kThreads + threadIdx.x, n_warps = (n + 31) / 32;
+  if ((g >> 5) >= n_warps) return;
+  const int i = (g & 31) * n_warps + (g >> 5);
   if (i >= n) return;
-  const float ov[3] = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
-  const float dv[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
   const bool any = anyhit[i] != 0;
   float t_best = tmax_in[i];
   int tri_best = -1;
   float b1b = 0.0f, b2b = 0.0f;
 
-  float inv[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    inv[a] = 1.0f / (fabsf(dv[a]) < 1e-20f ? (dv[a] < 0.0f ? -1e-20f : 1e-20f) : dv[a]);
-  const float lo[3] = {wlo0, wlo1, wlo2}, hi[3] = {whi0, whi1, whi2};
-  float tn[3], tf[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float t0 = (lo[a] - ov[a]) * inv[a], t1 = (hi[a] - ov[a]) * inv[a];
-    tn[a] = fminf(t0, t1);
-    tf[a] = fmaxf(t0, t1);
-  }
-  float tmin = fmaxf(fmaxf(fmaxf(tn[0], tn[1]), tn[2]), 0.0f);
-  float tmax = fminf(fminf(tf[0], tf[1]), tf[2]) * 1.00000024f;
+  const float ix = guard_inv(dx), iy = guard_inv(dy), iz = guard_inv(dz);
+  const float tx0 = (wlo0 - ox) * ix, tx1 = (whi0 - ox) * ix;
+  const float ty0 = (wlo1 - oy) * iy, ty1 = (whi1 - oy) * iy;
+  const float tz0 = (wlo2 - oz) * iz, tz1 = (whi2 - oz) * iz;
+  float tmin = fmaxf(fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1)), 0.0f);
+  float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1)) * 1.00000024f;
   tmax = fminf(tmax, t_best);
 
   if (tmin <= tmax) {
     Ray r;
-    r.ox = ov[0];
-    r.oy = ov[1];
-    r.oz = ov[2];
-    float ax = fabsf(dv[0]), ay = fabsf(dv[1]), az = fabsf(dv[2]);
+    r.ox = ox;
+    r.oy = oy;
+    r.oz = oz;
+    const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
     r.kz = (ax >= ay && ax >= az) ? 0 : (ay >= az ? 1 : 2);
     r.kx = (r.kz + 1) % 3;
     r.ky = (r.kx + 1) % 3;
-    float dz = pick3(dv[0], dv[1], dv[2], r.kz);
-    r.sz = 1.0f / (dz == 0.0f ? 1e-20f : dz);
-    r.sx = -pick3(dv[0], dv[1], dv[2], r.kx) * r.sz;
-    r.sy = -pick3(dv[0], dv[1], dv[2], r.ky) * r.sz;
+    const float dkz = pick3(dx, dy, dz, r.kz);
+    r.sz = 1.0f / (dkz == 0.0f ? 1e-20f : dkz);
+    r.sx = -pick3(dx, dy, dz, r.kx) * r.sz;
+    r.sy = -pick3(dx, dy, dz, r.ky) * r.sz;
 
     int st_n[kStack];
     float st_t0[kStack], st_t1[kStack];
-    int node = 0, sp = 0, cursor = 0;
-    while (true) {
-      const int4 rec = recs[node];
-      bool pop;
-      if (tmin > t_best) {
-        pop = true;                      // behind the best hit
-      } else if (rec.x == kLeaf) {
-        const int cnt = rec.z;
+    int node = 0, sp = 0;
+    while (true) {                       // from the root or a popped entry
+      if (!(tmin > t_best)) {            // "behind" the best hit pops at once
+        int2 rec = __ldg(nodes + node);
+        // Interior steps until a leaf: tmin and t_best do not change on the
+        // way down, so "behind" cannot become true here.
+        while ((rec.y & 3) != kLeaf) {
+          const int a = rec.y & 3;
+          const float split = __int_as_float(rec.x);
+          const float o_ax = pick3(ox, oy, oz, a), d_ax = pick3(dx, dy, dz, a);
+          const float t_plane = (split - o_ax) * pick3(ix, iy, iz, a);
+          const bool below_first = (o_ax < split) || (o_ax == split && d_ax <= 0.0f);
+          const int above = rec.y >> 2;
+          const int first = below_first ? node + 1 : above;
+          const int second = below_first ? above : node + 1;
+          const bool only_first = (t_plane > tmax) || (t_plane <= 0.0f);
+          const bool only_second = !only_first && (t_plane < tmin);
+          if (only_second) {
+            node = second;
+          } else if (only_first) {
+            node = first;
+          } else {
+            if (sp < kStack) {           // a push past the stack is dropped
+              st_n[sp] = second;
+              st_t0[sp] = fmaxf(t_plane, tmin);
+              st_t1[sp] = tmax;
+            }
+            ++sp;
+            node = first;
+            tmax = t_plane;
+          }
+          rec = __ldg(nodes + node);
+        }
+        // The leaf's prims, kChunk a step; "behind" is tested again before
+        // each further chunk, as the reference's next step would.
+        const int cnt = rec.y >> 2;
+        const int* idx = prim_indices + rec.x;
+        for (int c = 0; c < cnt; c += kChunk) {
+          if (c > 0 && tmin > t_best) break;
 #pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          const int j = cursor + k;
-          if (j < cnt) {
-            const int s = rec.y + j;
-            const float4 q0 = leaf_tris[3 * s], q1 = leaf_tris[3 * s + 1],
-                         q2 = leaf_tris[3 * s + 2];
-            const float p[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
-            float t, b1, b2;
-            if (tri_test(r, p, t_best, t, b1, b2)) {
-              t_best = t;
-              tri_best = s;
-              b1b = b1;
-              b2b = b2;
+          for (int k = 0; k < kChunk; ++k) {
+            if (c + k < cnt) {
+              const int prim = __ldg(idx + c + k);
+              const float4 q0 = __ldg(tris + 3 * prim), q1 = __ldg(tris + 3 * prim + 1),
+                           q2 = __ldg(tris + 3 * prim + 2);
+              const float p[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+              float t, b1, b2;
+              if (tri_test(r, p, t_best, t, b1, b2)) {
+                t_best = t;
+                tri_best = prim;
+                b1b = b1;
+                b2b = b2;
+              }
             }
           }
+          if (any && tri_best >= 0) break;
         }
-        if (any && tri_best >= 0) break;
-        cursor += kChunk;
-        pop = cursor >= cnt;
-        if (!pop) continue;              // the leaf's next chunk
-      } else {
-        const int a = rec.x;
-        const float split = __int_as_float(rec.y);
-        const float o_ax = ov[a], d_ax = dv[a];
-        const float t_plane = (split - o_ax) * inv[a];
-        const bool below_first = (o_ax < split) || (o_ax == split && d_ax <= 0.0f);
-        const int first = below_first ? node + 1 : rec.z;
-        const int second = below_first ? rec.z : node + 1;
-        const bool only_first = (t_plane > tmax) || (t_plane <= 0.0f);
-        const bool only_second = !only_first && (t_plane < tmin);
-        if (only_second) {
-          node = second;
-        } else if (only_first) {
-          node = first;
-        } else {
-          if (sp < kStack) {             // a push past the stack is dropped
-            st_n[sp] = second;
-            st_t0[sp] = fmaxf(t_plane, tmin);
-            st_t1[sp] = tmax;
-          }
-          ++sp;
-          node = first;
-          tmax = t_plane;
-        }
-        continue;
       }
-      if (pop) {
-        if (any && tri_best >= 0) break;
-        cursor = 0;
-        if (sp <= 0) break;
-        const int k = min(sp - 1, kStack - 1);   // a pop past the stack reads the last entry
-        node = st_n[k];
-        tmin = st_t0[k];
-        tmax = st_t1[k];
-        --sp;
-      }
+      if ((any && tri_best >= 0) || sp <= 0) break;
+      const int k = min(sp - 1, kStack - 1);   // a pop past the stack reads the last entry
+      node = st_n[k];
+      tmin = st_t0[k];
+      tmax = st_t1[k];
+      --sp;
     }
   }
   t_out[i] = t_best;
-  tri_out[i] = tri_best >= 0 ? prim_indices[tri_best] : -1;
+  tri_out[i] = tri_best;
   b1_out[i] = b1b;
   b2_out[i] = b2b;
 }
 
 }  // namespace
 
-// K1 over n rays: recs [M] int4 node records, leaf_tris [P*3] float4, the
-// world box; outputs t, tri, b1, b2 [n]. Returns the launch's cudaError.
-extern "C" int pbrt_kdtree_traverse(const void* recs, const void* leaf_tris,
-                                    const void* prim_indices, const void* o, const void* d,
-                                    const void* tmax, const void* anyhit, int n, float wlo0,
-                                    float wlo1, float wlo2, float whi0, float whi1, float whi2,
-                                    void* t_out, void* tri_out, void* b1_out, void* b2_out,
-                                    void* stream) {
-  kd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int4*)recs, (const float4*)leaf_tris, (const int*)prim_indices, (const float*)o,
+// K1 over n rays: nodes [M] int2 node records, prim_indices [P], tris [T*3]
+// float4 vertex rows and the world box; outputs t, tri, b1, b2 [n]. Returns
+// the launch's cudaError.
+extern "C" int pbrt_kdtree_traverse(const void* nodes, const void* prim_indices, const void* tris,
+                                    const void* o, const void* d, const void* tmax,
+                                    const void* anyhit, int n, float wlo0, float wlo1, float wlo2,
+                                    float whi0, float whi1, float whi2, void* t_out,
+                                    void* tri_out, void* b1_out, void* b2_out, void* stream) {
+  const int threads = (n + 31) / 32 * 32;
+  kd_kernel<<<(threads + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int2*)nodes, (const int*)prim_indices, (const float4*)tris, (const float*)o,
       (const float*)d, (const float*)tmax, (const uint8_t*)anyhit, n, wlo0, wlo1, wlo2, whi0,
       whi1, whi2, (float*)t_out, (int*)tri_out, (float*)b1_out, (float*)b2_out);
   return (int)cudaGetLastError();

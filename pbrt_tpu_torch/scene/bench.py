@@ -99,6 +99,7 @@ import os
 
 import numpy as np
 
+from pbrt_tpu_torch.accel.kdtree import LEAF, KdTables
 from pbrt_tpu_torch.accel.traverse import tpu_table_bytes
 from pbrt_tpu_torch.cameras import realistic as R
 from pbrt_tpu_torch.scene.api import Api, ShapeRecord
@@ -1057,3 +1058,57 @@ def calibration_scene(name, integrator, res=None, spp=None) -> str:
                 '  "rgb sigma_a" [0.02 0.02 0.02] "rgb sigma_s" [0.10 0.10 0.10]\n'
                 '  "float g" 0.0\nMediumInterface "fog" "fog"\n') + text
     return text
+
+
+def deep_kd_case(levels=72, n=2048, seed=11):
+    """A hand-built kd-tree deeper than a walk's 64-entry stack, and rays
+    that overflow it: a chain of `levels` interior nodes splitting x, y, z
+    in turn at levels - k (k the level), each below child the next node of
+    the chain and each above child a leaf, the last below child a leaf too.
+    Half the rays start near the origin and run along the diagonal, so they
+    cross every split and push every above leaf: the pushes past the 64th
+    are dropped, and the pops past the stack read entry 63. The leaves of
+    those dropped pushes list triangle 0, across the diagonal 4.3 units out,
+    and entry 63's leaf lists triangle 1, further out, so a walk that kept
+    the dropped entries, or read another on those pops, would find another
+    hit. Every other leaf lists 0 - 6 of 46 seeded triangles anywhere in
+    the box (so one to two 4-prim chunks). The rest of the rays start
+    anywhere in the box in any direction; every fifth ray has t_max 40, and
+    the second half is any-hit.
+    -> (KdTables, triangle vertices [48,3,3], o, d, t_max, anyhit) numpy."""
+    rng = np.random.default_rng(seed)
+    m = 2 * levels + 1
+    flags = np.full(m, LEAF, np.int32)
+    flags[:levels] = np.arange(levels) % 3
+    split = np.zeros(m, np.float32)
+    split[:levels] = levels - np.arange(levels)
+    above = np.zeros(m, np.int32)
+    above[:levels] = levels + 1 + np.arange(levels)
+    leaves = [list(rng.integers(2, 48, rng.integers(0, 7))) for _ in range(levels + 1)]
+    for k in range(64, levels):
+        leaves[1 + k] = [0] + leaves[1 + k]
+    leaves[1 + 63] = [1] + leaves[1 + 63]
+    counts = np.zeros(m, np.int32)
+    counts[levels:] = [len(x) for x in leaves]
+    offs = np.zeros(m, np.int32)
+    offs[levels:] = np.cumsum(counts[levels:]) - counts[levels:]
+    prims = np.asarray(sum(leaves, []), np.int32)
+    u = np.array([1.0, -1.0, 0.0]) / np.sqrt(2.0)
+    v = np.array([1.0, 1.0, -2.0]) / np.sqrt(6.0)
+    ang = np.radians([90.0, 210.0, 330.0])
+    star = 20.0 * (np.cos(ang)[:, None] * u + np.sin(ang)[:, None] * v)
+    tris = np.concatenate([np.stack([3.0 + star, 12.0 + star]),
+                           rng.uniform(0.0, levels, (46, 1, 3))
+                           + rng.uniform(-6.0, 6.0, (46, 3, 3))]).astype(np.float32)
+    tab = KdTables(flags, split, above, offs, counts, prims,
+                   np.full(3, -1.0, np.float32), np.full(3, levels + 2.0, np.float32))
+    half = n // 2
+    o = np.concatenate([rng.uniform(0.4, 0.6, (half, 3)),
+                        rng.uniform(-1.0, levels + 2.0, (n - half, 3))])
+    d = np.concatenate([1.0 + rng.uniform(-1e-3, 1e-3, (half, 3)),
+                        rng.normal(size=(n - half, 3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = np.full(n, np.inf, np.float32)
+    tm[::5] = 40.0
+    anyhit = (np.arange(n) % 2).astype(np.uint8)
+    return tab, tris, o.astype(np.float32), d.astype(np.float32), tm, anyhit

@@ -608,23 +608,29 @@ def _kd_scene(dev, options=None, **variant):
 
 def test_kd_kernel_matches_plain():
     """K1 against intersect_kdtree_plain (on the card's tensors) on the
-    small bench knot's kd-tree: a camera launch and 20,001 random rays,
-    the second half any-hit: t, triangle, b1 and b2 bit-equal on every
-    ray; one launch counted."""
+    small bench knot's kd-tree (a camera launch and 20,001 random rays, the
+    second half any-hit) and on bench.deep_kd_case's 72-level tree, whose
+    diagonal rays push past the stack's 64 entries (the drop and clamp
+    rules decide their hits): t, triangle, b1 and b2 bit-equal on every
+    ray; one launch counted each."""
     needs_cuda()
     from pbrt_tpu_torch.accel import kdtree as K
+    from pbrt_tpu_torch.scene.bench import deep_kd_case
     dev = torch.device("cuda")
     cs = _kd_scene(dev, accelerator="kdtree")
     assert cs.flags.accel == "kdtree"
-    o, d, tm, ah = _launch_rays(cs, dev)
-    before = K.intersect_kdtree.launches
-    got = K.intersect_kdtree(cs.data.kd, o, d, tm, ah)
-    torch.cuda.synchronize()
-    assert K.intersect_kdtree.launches == before + 1
-    want = K.intersect_kdtree_plain(cs.data.kd, o, d, tm, ah)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert bool((got[1] >= 0).any()) and bool((got[1] < 0).any())
+    tab, tp, *deep = deep_kd_case()
+    T = lambda a: torch.as_tensor(a, device=dev)
+    deep_kd = K.KdTree.from_tables(tab, T(tp[:, 0]), T(tp[:, 1]), T(tp[:, 2]))
+    for kd, rays in ((cs.data.kd, _launch_rays(cs, dev)), (deep_kd, [T(a) for a in deep])):
+        before = K.intersect_kdtree.launches
+        got = K.intersect_kdtree(kd, *rays)
+        torch.cuda.synchronize()
+        assert K.intersect_kdtree.launches == before + 1
+        want = K.intersect_kdtree_plain(kd, *rays)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool((got[1] >= 0).any()) and bool((got[1] < 0).any())
 
 
 def test_kd_wrapper_raises_instead_of_falling_back():

@@ -27,7 +27,7 @@ from pbrt_tpu_torch.accel import kdtree as K
 from pbrt_tpu_torch.integrators.path import li_path
 from pbrt_tpu_torch.io.image_io import read_png
 from pbrt_tpu_torch.scene import load_scene_string
-from pbrt_tpu_torch.scene.bench import calibration_scene, kdtree_calibration_scene
+from pbrt_tpu_torch.scene.bench import calibration_scene, deep_kd_case, kdtree_calibration_scene
 from pbrt_tpu_torch.shapes.triangle import intersect_tri, make_knot_mesh
 
 TABLES = ("flags", "split_pos", "above_child", "prim_offset", "prim_count", "prim_indices")
@@ -121,7 +121,8 @@ def test_plain_walk_matches_reference(which, any_hit):
     soup's triangles are small, so their edge functions' rounding weighs
     more), the triangles equal on 99.9% and each other ray a tie on a
     shared edge; any-hit rays stop after the 4-prim chunk that hit, as
-    there."""
+    there. The counts: the distinct triangles tested are at most the leaf
+    slots tested, and the per-ray visits sum to the visits."""
     if which == "soup":
         tp, lo, hi, o, d = _soup()
     else:
@@ -152,10 +153,75 @@ def test_plain_walk_matches_reference(which, any_hit):
     for a, b in ((b1, jh.b1), (b2, jh.b2)):
         assert np.all(np.abs(a.numpy()[hit & same] - np.asarray(b)[hit & same]) <= 1e-4)
     assert counts.visits > n and counts.tri_tests > 0
-    nodes, slots, indices = counts.touched()
+    nodes, slots, prims = counts.touched()
     assert 0 < nodes <= min(kd.n_nodes, counts.visits)
     assert 0 < slots <= min(kd.prim_indices.shape[0], counts.tri_tests)
-    assert 0 < indices <= hit.sum()
+    assert 0 < prims <= min(tp.shape[0], slots)
+    assert counts.ray_visits.shape == (n,) and int(counts.ray_visits.sum()) == counts.visits
+
+
+def _depth_by_recursion(tab, node=0):
+    if tab.flags[node] == K.LEAF:
+        return 0
+    return 1 + max(_depth_by_recursion(tab, node + 1),
+                   _depth_by_recursion(tab, int(tab.above_child[node])))
+
+
+@pytest.mark.parametrize("which", ["soup", "knot"])
+def test_node_records_decode_to_the_tables(which):
+    """The 8-byte node records give back the builder's flags, split, above
+    child, prim offset and prim count on every node of the soup's and the
+    4,608-triangle knot's trees; the triangle table holds each triangle's
+    vertices once, and the tree's depth is the longest root-to-leaf chain
+    of interior nodes (by recursion on the soup)."""
+    if which == "soup":
+        tp, lo, hi, _, _ = _soup()
+    else:
+        tp, lo, hi = _knot(96, 24)
+    tab = K.build_kdtree(lo, hi)
+    T = torch.as_tensor
+    kd = K.KdTree.from_tables(tab, T(tp[:, 0]), T(tp[:, 1]), T(tp[:, 2]))
+    assert kd.nodes.shape == (tab.n_nodes, 2) and kd.nodes.dtype == torch.int32
+    flags, word0, high = K.node_fields(kd.nodes.numpy())
+    leaf = tab.flags == K.LEAF
+    assert np.array_equal(flags, tab.flags) and leaf.any() and (~leaf).any()
+    assert np.array_equal(word0[~leaf].view(np.float32), tab.split_pos[~leaf])
+    assert np.array_equal(high[~leaf], tab.above_child[~leaf])
+    assert np.array_equal(word0[leaf], tab.prim_offset[leaf])
+    assert np.array_equal(high[leaf], tab.prim_count[leaf])
+    assert np.array_equal(kd.prim_indices.numpy(), tab.prim_indices)
+    assert np.array_equal(kd.tris.numpy()[:, :9], tp.reshape(-1, 9))
+    assert kd.device_bytes() == 8 * tab.n_nodes + 4 * tab.prim_indices.size + 48 * tp.shape[0]
+    if which == "soup":
+        assert kd.depth == _depth_by_recursion(tab) > 5
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_deep_tree_walk_matches_reference(any_hit):
+    """On bench.deep_kd_case's hand-built 72-level tree, whose diagonal
+    rays push past the 64-entry stack (the drop and clamp rules decide
+    their hits), the plain walk against the reference's walk on the same
+    tables, closest and any-hit: the same triangle on every ray, t within
+    1e-6 max(1, t), the barycentrics within 1e-5."""
+    tab, tp, o, d, tm, _ = deep_kd_case()
+    n = o.shape[0]
+    T = torch.as_tensor
+    kd = K.KdTree.from_tables(tab, T(tp[:, 0]), T(tp[:, 1]), T(tp[:, 2]))
+    assert kd.depth == 72
+    t, tri, b1, b2 = K.intersect_kdtree_plain(kd, T(o), T(d), T(tm),
+                                              T(np.full(n, any_hit, np.uint8)))
+    jkd = JKdTree(*(jnp.asarray(getattr(tab, f)) for f in TABLES),
+                  jnp.asarray(tab.world_lo), jnp.asarray(tab.world_hi))
+    jh = j_intersect_kdtree(jkd, *(jnp.asarray(tp[:, i]) for i in range(3)), jnp.asarray(o),
+                            jnp.asarray(d), jnp.asarray(tm), any_hit=any_hit)
+    tri = tri.numpy()
+    assert np.array_equal(tri, np.asarray(jh.tri))
+    assert (tri[: n // 2] == 1).mean() > 0.5    # the diagonal rays' hit past the dropped pushes
+    hit = tri >= 0
+    jt = np.asarray(jh.t)[hit]
+    assert np.all(np.abs(t.numpy()[hit] - jt) <= 1e-6 * np.maximum(1.0, np.abs(jt)))
+    for a, b in ((b1, jh.b1), (b2, jh.b2)):
+        assert np.all(np.abs(a.numpy()[hit] - np.asarray(b)[hit]) <= 1e-5)
 
 
 def test_scene_takes_the_kd_route_from_64_world_triangles():
