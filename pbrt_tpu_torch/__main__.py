@@ -8,8 +8,14 @@ is given. On the card the BVH and instance walks run the CUDA kernels
 (built at first use); with no card it raises: there is no CPU fallback.
 A scene that fails to render is logged to stderr as `error rendering PATH:
 ERROR` and the next one is rendered (the reference's log and continue).
---stats prints the statistics report after each scene; --preview writes
-the image so far every N passes; --checkpoint saves the film every
+--stats prints the statistics report after each scene, with a Timing
+category: each utils/trace.py span's host time a frame less the time of
+the spans nested in it ("Timing/render.pass self ms", "Timing/li.bsdf
+self ms", "Timing/sampler self ms", ...), recorded only under --stats. The
+host issues the device's work without waiting for it, so a stage's time is
+its issue time plus, where it copies host data to the device or reads a
+device value back, its wait for the device to catch up. --preview writes the
+image so far every N passes; --checkpoint saves the film every
 --checkpoint-every passes and --resume starts from it; --devices shards a
 sampler integrator's render over N ranks (on CUDA one a card, as many as
 there are).
@@ -17,6 +23,7 @@ there are).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -54,6 +61,7 @@ def main(argv=None):
     from pbrt_tpu_torch.render import render_file
     from pbrt_tpu_torch.utils.options import Options
     from pbrt_tpu_torch.utils.stats import STATS
+    from pbrt_tpu_torch.utils.trace import recording, report_timing, take
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device "
@@ -67,13 +75,16 @@ def main(argv=None):
     for path in args.scenes:
         t0 = time.time()
         try:
-            out, _ = render_file(path, opts, device=device, verbose=not args.quiet)
+            with recording() if args.stats else contextlib.nullcontext():
+                out, _ = render_file(path, opts, device=device, verbose=not args.quiet)
         except Exception as e:  # noqa: BLE001 - log and continue, as the reference does
             print(f"error rendering {path}: {e}", file=sys.stderr)
+            take()
             continue
         if not args.quiet:
             print(f"{path} -> {out}  ({time.time() - t0:.1f}s)")
         if args.stats:
+            report_timing(STATS, take())
             print(STATS.format())
             STATS.clear()
     return 0

@@ -32,6 +32,10 @@ launch, each), picks one of the hits on the entry's material uniformly by
 reservoir (dimensions + 12 - + 14), and weights it by Sp / pdf_sp (the
 three-axis, three-channel MIS); the exit point shades with the Sw
 adapter, a Lambertian of the boundary's Fresnel moment.
+
+The stages are utils/trace.py spans: li.camera and li.intersect once, then
+a bounce's li.emit, li.lobes, li.nee, li.bsdf, li.rr and li.pair; the
+subsurface branches fall inside the enclosing span.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from pbrt_tpu_torch.materials import M_MIX, bssrdf as SSS, compute_lobes, lift_l
 from pbrt_tpu_torch.samplers import sample_2d, sample_dim
 from pbrt_tpu_torch.scene.intersect import dead_lane_rays, intersect, intersect_pair
 from pbrt_tpu_torch.textures import T_IMAGEMAP
+from pbrt_tpu_torch.utils.trace import span
 
 COUNTERS = ("camera_rays", "shadow_rays", "bounce_rays", "valid_hits",
             "paths_terminated_rr")
@@ -196,13 +201,14 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
         sample_dim_ = sampler_fn
         sample_2d_ = lambda dim: torch.stack([sampler_fn(dim), sampler_fn(dim + 1)], -1)
     track_diff = T_IMAGEMAP in flags.tex_kinds
-    if p_film_override is None:
-        rays, ray_w, p_film = camera_rays(cs, px, py, sample_idx,
-                                          spp_for_diff=spec.rounded_spp() if track_diff else None)
-    else:
-        p_film = p_film_override
-        rays, ray_w = generate_rays(cs.camera, p_film, False,
-                                    *camera_dims(cs.camera, sample_dim_, sample_2d_))
+    with span("li.camera"):
+        if p_film_override is None:
+            rays, ray_w, p_film = camera_rays(
+                cs, px, py, sample_idx, spp_for_diff=spec.rounded_spp() if track_diff else None)
+        else:
+            p_film = p_film_override
+            rays, ray_w = generate_rays(cs.camera, p_film, False,
+                                        *camera_dims(cs.camera, sample_dim_, sample_2d_))
     o, d = rays.o, rays.d
     spectral = flags.spectral
     L = torch.zeros((n, channels(flags)), device=dev)
@@ -229,7 +235,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
 
     # ray time places animated instances (the camera's time dimension)
     ray_time = sample_dim_(4) if flags.n_instances > 0 else None
-    si = intersect(data, flags, o, normalize(d), t_max, time=ray_time)
+    with span("li.intersect"):
+        si = intersect(data, flags, o, normalize(d), t_max, time=ray_time)
     diff_rays = rays
     for bounce in range(max_depth + 1):
         base = bounce_base(bounce)
@@ -246,110 +253,116 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
             active = active & (~pending | here)
         if track_diff:
             si = compute_differentials(si, diff_rays)
-        wd = None
-        if flags.has_infinite:
-            esc = active & ~si.valid
-            if sss:
-                esc = esc & ~pending
-            wd = normalize(d)
-            le_inf = LT.le_escaped(data.lights, flags.infinite_light_ids, wd)
-            if spectral:
-                le_inf = rgb_to_spectrum(le_inf)
-            if bounce == 0:
-                w = torch.ones(n, device=dev)
-            else:
-                w = torch.where(specular_bounce, 1.0, power_heuristic(
-                    1.0, prev_bsdf_pdf, 1.0, infinite_pdf_for_dir(cs, wd, prev_p)))
-            L = L + torch.where(esc[:, None], beta * le_inf * w[:, None], 0.0)
-        if flags.has_area_lights:
-            hit_l = active & si.valid & (si.area_light >= 0)
-            if sss:
-                hit_l = hit_l & ~pending
-            le = LT.le_area(data.lights, si.area_light, si.ng, si.wo)
-            if spectral:
-                le = rgb_to_spectrum(le)
-            if bounce == 0:
-                w = torch.ones(n, device=dev)
-            else:
-                w = torch.where(specular_bounce, 1.0, power_heuristic(
-                    1.0, prev_bsdf_pdf, 1.0,
-                    light_pdf_for_dir(cs, prev_p, wd, si, si.area_light)))
-            L = L + torch.where(hit_l[:, None], beta * le * w[:, None], 0.0)
+        with span("li.emit"):
+            wd = None
+            if flags.has_infinite:
+                esc = active & ~si.valid
+                if sss:
+                    esc = esc & ~pending
+                wd = normalize(d)
+                le_inf = LT.le_escaped(data.lights, flags.infinite_light_ids, wd)
+                if spectral:
+                    le_inf = rgb_to_spectrum(le_inf)
+                if bounce == 0:
+                    w = torch.ones(n, device=dev)
+                else:
+                    w = torch.where(specular_bounce, 1.0, power_heuristic(
+                        1.0, prev_bsdf_pdf, 1.0, infinite_pdf_for_dir(cs, wd, prev_p)))
+                L = L + torch.where(esc[:, None], beta * le_inf * w[:, None], 0.0)
+            if flags.has_area_lights:
+                hit_l = active & si.valid & (si.area_light >= 0)
+                if sss:
+                    hit_l = hit_l & ~pending
+                le = LT.le_area(data.lights, si.area_light, si.ng, si.wo)
+                if spectral:
+                    le = rgb_to_spectrum(le)
+                if bounce == 0:
+                    w = torch.ones(n, device=dev)
+                else:
+                    w = torch.where(specular_bounce, 1.0, power_heuristic(
+                        1.0, prev_bsdf_pdf, 1.0,
+                        light_pdf_for_dir(cs, prev_p, wd, si, si.area_light)))
+                L = L + torch.where(hit_l[:, None], beta * le * w[:, None], 0.0)
 
         active = active & si.valid
         cnt["valid_hits"] += active.sum()
         if bounce == max_depth:
             break
 
-        u_mix = sample_dim_(base + 0) if M_MIX in flags.mat_kinds else None
-        lobes = compute_lobes(data.mats, data.tex, si.material, si.uv, si.p, si.duv,
-                              flags.has_tex_slot, flags.tex_kinds, u_mix, fams, flags.mat_kinds)
-        if spectral:
-            lobes = lift_lobes(lobes)
-        if sss:
-            lobes = _adapter_lobes(lobes, here, kd_adapter)
+        with span("li.lobes"):
+            u_mix = sample_dim_(base + 0) if M_MIX in flags.mat_kinds else None
+            lobes = compute_lobes(data.mats, data.tex, si.material, si.uv, si.p, si.duv,
+                                  flags.has_tex_slot, flags.tex_kinds, u_mix, fams, flags.mat_kinds)
+            if spectral:
+                lobes = lift_lobes(lobes)
+            if sss:
+                lobes = _adapter_lobes(lobes, here, kd_adapter)
 
         # NEE: light sample now, occlusion in the merged launch below
-        u_sel = sample_dim_(base + 1)
-        u_light = sample_2d_(base + 2)
-        cnt["shadow_rays"] += active.sum()
-        ld, o_sh, d_sh, dist_sh, nee_live = prepare_one_light(
-            cs, si, lobes, active, u_sel, u_light)
-        beta_nee = beta
+        with span("li.nee"):
+            u_sel = sample_dim_(base + 1)
+            u_light = sample_2d_(base + 2)
+            cnt["shadow_rays"] += active.sum()
+            ld, o_sh, d_sh, dist_sh, nee_live = prepare_one_light(
+                cs, si, lobes, active, u_sel, u_light)
+            beta_nee = beta
 
         # BSDF sampling
-        u_lobe = sample_dim_(base + 4)
-        u_dir = sample_2d_(base + 5)
-        wo_local = si.world_to_local(si.wo)
-        bs = B.bsdf_sample(lobes, wo_local, u_lobe, u_dir, ftab, fams)
-        wi_world = si.local_to_world(bs.wi)
-        cos_w = vm.absdot(wi_world, si.ns)
-        ok = active & (bs.pdf > 0.0) & ~B.black(bs.f)
-        cnt["bounce_rays"] += ok.sum()
-        beta = torch.where(ok[:, None], beta * bs.f
-                           * (cos_w / torch.clamp(bs.pdf, min=1e-12))[:, None], beta)
-        active = ok
-        specular_bounce = bs.is_specular
-        if track_diff:
-            trans = bs.is_transmission if bs.is_transmission is not None \
-                else torch.zeros_like(ok)
-            diff_rays = specular_diff_rays(si, diff_rays, wi_world, bs.is_specular & ok,
-                                           trans, lobes.eta)
-        prev_bsdf_pdf = bs.pdf
-        if bs.eta_scale is not None:
-            eta_scale = bs.eta_scale if eta_scale is None else eta_scale * bs.eta_scale
-        if prev_p is not None:
-            prev_p = si.p
-        o = si.spawn_origin(wi_world)
-        d = wi_world
-        if sss:
-            entering, probe_o, probe_d, chord, kd_ad = _probe_launch(
-                cs, si, lobes, bs, wo_local, ok, here, sample_dim_, base, radii)
-            e3 = entering[:, None]
-            o = torch.where(e3, probe_o, o)
-            d = torch.where(e3, probe_d, d)
-            t_max = torch.where(entering, chord, vm.INF)
-            pending = entering
-            entry_p = torch.where(e3, si.p, entry_p)
-            entry_mat = torch.where(entering, si.material, entry_mat)
-            frame = [torch.where(e3, v, f) for v, f in zip((si.ss, si.ts, si.ns), frame)]
-            kd_adapter = torch.where(entering, kd_ad, kd_adapter)
+        with span("li.bsdf"):
+            u_lobe = sample_dim_(base + 4)
+            u_dir = sample_2d_(base + 5)
+            wo_local = si.world_to_local(si.wo)
+            bs = B.bsdf_sample(lobes, wo_local, u_lobe, u_dir, ftab, fams)
+            wi_world = si.local_to_world(bs.wi)
+            cos_w = vm.absdot(wi_world, si.ns)
+            ok = active & (bs.pdf > 0.0) & ~B.black(bs.f)
+            cnt["bounce_rays"] += ok.sum()
+            beta = torch.where(ok[:, None], beta * bs.f
+                               * (cos_w / torch.clamp(bs.pdf, min=1e-12))[:, None], beta)
+            active = ok
+            specular_bounce = bs.is_specular
+            if track_diff:
+                trans = bs.is_transmission if bs.is_transmission is not None \
+                    else torch.zeros_like(ok)
+                diff_rays = specular_diff_rays(si, diff_rays, wi_world, bs.is_specular & ok,
+                                               trans, lobes.eta)
+            prev_bsdf_pdf = bs.pdf
+            if bs.eta_scale is not None:
+                eta_scale = bs.eta_scale if eta_scale is None else eta_scale * bs.eta_scale
+            if prev_p is not None:
+                prev_p = si.p
+            o = si.spawn_origin(wi_world)
+            d = wi_world
+            if sss:
+                entering, probe_o, probe_d, chord, kd_ad = _probe_launch(
+                    cs, si, lobes, bs, wo_local, ok, here, sample_dim_, base, radii)
+                e3 = entering[:, None]
+                o = torch.where(e3, probe_o, o)
+                d = torch.where(e3, probe_d, d)
+                t_max = torch.where(entering, chord, vm.INF)
+                pending = entering
+                entry_p = torch.where(e3, si.p, entry_p)
+                entry_mat = torch.where(entering, si.material, entry_mat)
+                frame = [torch.where(e3, v, f) for v, f in zip((si.ss, si.ts, si.ns), frame)]
+                kd_adapter = torch.where(entering, kd_ad, kd_adapter)
 
         # Russian roulette
         if bounce > 3:
-            rr_beta = vm.max_component(beta if eta_scale is None else beta * eta_scale[:, None])
-            u_rr = sample_dim_(base + 7)
-            q = torch.clamp(1.0 - rr_beta, min=0.05)
-            do_rr = rr_beta < rr_threshold
-            survive = ~do_rr | (u_rr >= q)
-            beta = torch.where((do_rr & survive)[:, None],
-                               beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
-            cnt["paths_terminated_rr"] += (active & ~survive).sum()
-            active = active & survive
+            with span("li.rr"):
+                rr_beta = vm.max_component(beta if eta_scale is None else beta * eta_scale[:, None])
+                u_rr = sample_dim_(base + 7)
+                q = torch.clamp(1.0 - rr_beta, min=0.05)
+                do_rr = rr_beta < rr_threshold
+                survive = ~do_rr | (u_rr >= q)
+                beta = torch.where((do_rr & survive)[:, None],
+                                   beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
+                cnt["paths_terminated_rr"] += (active & ~survive).sum()
+                active = active & survive
 
-        si, occluded = intersect_pair(data, flags, o, normalize(d), t_max, active,
-                                      o_sh, d_sh, dist_sh, nee_live, time=ray_time)
-        L = L + torch.where((nee_live & ~occluded)[:, None], beta_nee * ld, 0.0)
+        with span("li.pair"):
+            si, occluded = intersect_pair(data, flags, o, normalize(d), t_max, active,
+                                          o_sh, d_sh, dist_sh, nee_live, time=ray_time)
+            L = L + torch.where((nee_live & ~occluded)[:, None], beta_nee * ld, 0.0)
     if spectral:
         L = spectrum_to_rgb(L)
     return L, p_film, ray_w, cnt

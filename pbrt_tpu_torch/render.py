@@ -11,7 +11,11 @@ order, times k sample indices make one wavefront pass of about
 `wavefront_size` lanes; each pass deposits into the film, and the host
 loops over passes: it resumes from a checkpoint, saves one and writes a
 preview image every so many passes where the options ask, and reports the
-render's statistics into utils/stats.py's STATS.
+render's statistics into utils/stats.py's STATS. Its stages are
+utils/trace.py spans: render.frame around render(), so that every
+driver's spans share its frame, and in render_sampler_integrator
+render.setup, render.pass a pass (film.deposit inside it),
+render.develop and render.wait, where the host reads the counters back.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from pbrt_tpu_torch.io.image_io import write_image
 from pbrt_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from pbrt_tpu_torch.utils.options import Options
 from pbrt_tpu_torch.utils.stats import STATS, merge_device_counters
+from pbrt_tpu_torch.utils.trace import span
 
 
 def morton2(x, y, bits=16):
@@ -86,13 +91,14 @@ def render(cs, options: Optional[Options] = None, verbose=False):
     options.devices is over 1 (render_sharded; on CUDA one rank a card,
     as many as there are)."""
     options = options or Options()
-    driver = DRIVERS.get(cs.integrator_kind)
-    if driver is not None:
-        return driver(cs, options)
-    if options.devices > 1:
-        from pbrt_tpu_torch.parallel.mesh import n_ranks_for, render_sharded
-        return render_sharded(cs, n_ranks_for(options.devices, cs.device), options, verbose)
-    return render_sampler_integrator(cs, options, verbose)
+    with span("render.frame"):
+        driver = DRIVERS.get(cs.integrator_kind)
+        if driver is not None:
+            return driver(cs, options)
+        if options.devices > 1:
+            from pbrt_tpu_torch.parallel.mesh import n_ranks_for, render_sharded
+            return render_sharded(cs, n_ranks_for(options.devices, cs.device), options, verbose)
+        return render_sampler_integrator(cs, options, verbose)
 
 
 def report_render(cs, img, totals, n_pix, spp, passes, lanes, seconds, options):
@@ -150,38 +156,43 @@ def render_sampler_integrator(cs, options: Optional[Options] = None, verbose=Fal
     options = options or Options()
     li = li_fn(cs)
     dev = cs.device
-    px_np, py_np = sample_pixels(cs.film)
-    n_pix = px_np.shape[0]
-    px = torch.as_tensor(px_np, device=dev)
-    py = torch.as_tensor(py_np, device=dev)
-    spp = cs.sampler.rounded_spp()
-    if options.quick:
-        spp = max(1, spp // 4)
-    k = max(1, min(spp, options.wavefront_size // max(n_pix, 1)))
-    table = torch.as_tensor(build_table(cs.film.filter), device=dev)
-
-    film, s = resume_state(cs, options, verbose, spp)
-    totals = {c: torch.zeros((), dtype=torch.int64, device=dev) for c in COUNTERS}
+    with span("render.setup"):
+        px_np, py_np = sample_pixels(cs.film)
+        n_pix = px_np.shape[0]
+        px = torch.as_tensor(px_np, device=dev)
+        py = torch.as_tensor(py_np, device=dev)
+        spp = cs.sampler.rounded_spp()
+        if options.quick:
+            spp = max(1, spp // 4)
+        k = max(1, min(spp, options.wavefront_size // max(n_pix, 1)))
+        table = torch.as_tensor(build_table(cs.film.filter), device=dev)
+        film, s = resume_state(cs, options, verbose, spp)
+        totals = {c: torch.zeros((), dtype=torch.int64, device=dev) for c in COUNTERS}
     passes = 0
     t0 = time.time()
     while s < spp:
-        kk = min(k, spp - s)
-        pxs = px.repeat(kk)
-        pys = py.repeat(kk)
-        sidx = (s + torch.arange(kk, device=dev).repeat_interleave(n_pix)).to(torch.int32)
-        L, p_film, ray_w, cnt = li(cs, pxs, pys, sidx)
-        film = add_samples(cs.film, film, p_film, L, ray_w, table)
-        for c in COUNTERS:
-            totals[c] += cnt[c]
-        s += kk
-        passes += 1
-        if verbose:
-            float(film.weight_sum[0, 0])   # waits for the pass
-            el = time.time() - t0
-            print(f"  spp {s}/{spp}  ({el:.1f}s, {n_pix * s / max(el, 1e-9) / 1e6:.2f} Mpaths/s)")
-        after_pass(cs, film, s, spp, passes, options)
-    img = develop(cs.film, film)
-    totals = {c: int(v) for c, v in totals.items()}
+        with span("render.pass"):
+            kk = min(k, spp - s)
+            pxs = px.repeat(kk)
+            pys = py.repeat(kk)
+            sidx = (s + torch.arange(kk, device=dev).repeat_interleave(n_pix)).to(torch.int32)
+            L, p_film, ray_w, cnt = li(cs, pxs, pys, sidx)
+            with span("film.deposit"):
+                film = add_samples(cs.film, film, p_film, L, ray_w, table)
+            for c in COUNTERS:
+                totals[c] += cnt[c]
+            s += kk
+            passes += 1
+            if verbose:
+                float(film.weight_sum[0, 0])   # waits for the pass
+                el = time.time() - t0
+                print(f"  spp {s}/{spp}  ({el:.1f}s, "
+                      f"{n_pix * s / max(el, 1e-9) / 1e6:.2f} Mpaths/s)")
+            after_pass(cs, film, s, spp, passes, options)
+    with span("render.develop"):
+        img = develop(cs.film, film)
+    with span("render.wait"):
+        totals = {c: int(v) for c, v in totals.items()}
     report_render(cs, img, totals, n_pix, spp, passes, n_pix * k, time.time() - t0, options)
     return img, totals, passes
 

@@ -17,7 +17,8 @@ reference's bit for bit. Families:
   maxmindist   02sequence with the C_MAX_MIN_DIST matrices in its first
                2D slot.
 Every table (digit permutations, Sobol' byte tables) lives on the device
-of the pixel coordinates.
+of the pixel coordinates. Each call of sample_dim or sample_2d is one
+utils/trace.py span, "sampler".
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 
 from pbrt_tpu_torch.samplers import hashing as H
 from pbrt_tpu_torch.samplers import lds, sobol_ref
+from pbrt_tpu_torch.utils.trace import span
 
 KINDS = ("random", "stratified", "halton", "sobol", "02sequence", "maxmindist")
 
@@ -87,6 +89,11 @@ def _dim_key_int(seed: int, dim: int) -> int:
 def sample_dim(spec: SamplerSpec, px, py, sample_idx, dim: int):
     """[N] float32 sample for static dimension `dim`; px, py, sample_idx are
     [N] integer tensors."""
+    with span("sampler"):
+        return _sample_dim(spec, px, py, sample_idx, dim)
+
+
+def _sample_dim(spec, px, py, sample_idx, dim):
     if spec.kind == "halton":
         return _halton_dim(spec, H.u32(px), H.u32(py), H.u32(sample_idx), dim)
     if spec.kind == "sobol" and not spec.owen:
@@ -121,11 +128,12 @@ def sample_dim(spec: SamplerSpec, px, py, sample_idx, dim: int):
 def sample_2d(spec: SamplerSpec, px, py, sample_idx, dim: int):
     """[N, 2] sample for the 2D slot at (dim, dim+1); stratified draws the
     pair jointly from its xsamples x ysamples grid."""
-    if spec.kind == "stratified":
-        return _stratified_2d(spec, H.hash3(H.u32(px), H.u32(py), spec.seed),
-                              H.u32(sample_idx), dim)
-    return torch.stack([sample_dim(spec, px, py, sample_idx, dim),
-                        sample_dim(spec, px, py, sample_idx, dim + 1)], -1)
+    with span("sampler"):
+        if spec.kind == "stratified":
+            return _stratified_2d(spec, H.hash3(H.u32(px), H.u32(py), spec.seed),
+                                  H.u32(sample_idx), dim)
+        return torch.stack([_sample_dim(spec, px, py, sample_idx, dim),
+                            _sample_dim(spec, px, py, sample_idx, dim + 1)], -1)
 
 
 def _div(x, n: int):
