@@ -35,7 +35,11 @@ adapter, a Lambertian of the boundary's Fresnel moment.
 
 The stages are utils/trace.py spans: li.camera and li.intersect once, then
 a bounce's li.emit, li.lobes, li.nee, li.bsdf, li.rr and li.pair; the
-subsurface branches fall inside the enclosing span.
+subsurface branches fall inside the enclosing span. Where the scene's
+lobes can hold the glossy family and some primitive's material can give
+one, the counter glossy_hits (FAMILY_COUNTERS) sums the live lanes whose
+lobes hold a glossy reflection lobe over the bounces; elsewhere it is not
+counted and issues no operation.
 """
 from __future__ import annotations
 
@@ -56,7 +60,8 @@ from pbrt_tpu_torch.integrators.common import (bounce_base, camera_dims, camera_
                                                light_pdf_for_dir, prepare_one_light)
 from pbrt_tpu_torch.core.math import dot
 from pbrt_tpu_torch.materials import bsdf as B
-from pbrt_tpu_torch.materials import M_MIX, bssrdf as SSS, compute_lobes, lift_lobes
+from pbrt_tpu_torch.materials import (GLOSSY_KINDS, M_MIX, bssrdf as SSS, compute_lobes,
+                                      lift_lobes)
 from pbrt_tpu_torch.samplers import sample_2d, sample_dim
 from pbrt_tpu_torch.scene.intersect import dead_lane_rays, intersect, intersect_pair
 from pbrt_tpu_torch.textures import T_IMAGEMAP
@@ -64,6 +69,9 @@ from pbrt_tpu_torch.utils.trace import span
 
 COUNTERS = ("camera_rays", "shadow_rays", "bounce_rays", "valid_hits",
             "paths_terminated_rr")
+# counted only where some primitive's lobes can hold the family (glossy_hits:
+# flags.bsdf_fams' glossy and a GLOSSY_KINDS material in flags.shaded_kinds)
+FAMILY_COUNTERS = ("glossy_hits",)
 SSS_CHAIN_K = 4      # probe chord hits considered
 SSS_AXIS_PROB = (0.25, 0.25, 0.5)   # probe axis: the tangents ss, ts, then ns
 
@@ -190,7 +198,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
     differentials (MLT's primary sample space drives both).
 
     -> (L [N,3] RGB, p_film [N,2], ray_weight [N], counters): counters are
-    int64 device tensors (see COUNTERS) of live rays and hits."""
+    int64 device tensors (see COUNTERS and FAMILY_COUNTERS) of live rays
+    and hits."""
     spec, data, flags = cs.sampler, cs.data, cs.flags
     n = px.shape[0]
     dev = px.device
@@ -221,7 +230,9 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
     eta_scale = None
     ftab = data.fourier if flags.has_fourier else None
     fams = flags.bsdf_fams
-    cnt = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in COUNTERS}
+    glossy = (fams or B.ALL_FAMS)[1] and not set(GLOSSY_KINDS).isdisjoint(flags.shaded_kinds)
+    cnt = {k: torch.zeros((), dtype=torch.int64, device=dev)
+           for k in COUNTERS + (FAMILY_COUNTERS if glossy else ())}
     cnt["camera_rays"] += n
 
     sss = flags.has_subsurface
@@ -297,6 +308,8 @@ def li_path(cs, px, py, sample_idx, max_depth: int = 5, rr_threshold: float = 1.
                 lobes = lift_lobes(lobes)
             if sss:
                 lobes = _adapter_lobes(lobes, here, kd_adapter)
+            if glossy:
+                cnt["glossy_hits"] += (active & B.has_glossy(lobes)).sum()
 
         # NEE: light sample now, occlusion in the merged launch below
         with span("li.nee"):

@@ -39,6 +39,8 @@ KIND_IDS = {"matte": M_MATTE, "plastic": M_PLASTIC, "glass": M_GLASS,
             "mix": M_MIX, "subsurface": M_SUBSURFACE,
             "kdsubsurface": M_KDSUBSURFACE, "none": M_NONE, "": M_NONE}
 ALL_KINDS = tuple(k for k in range(13) if k not in (M_SUBSURFACE, M_KDSUBSURFACE))
+# the kinds to which compute_lobes can give a glossy reflection weight (Lobes.ks)
+GLOSSY_KINDS = (M_PLASTIC, M_GLASS, M_METAL, M_SUBSTRATE, M_TRANSLUCENT, M_UBER)
 N_SLOTS = 10
 SLOT_NAMES = ["Kd", "Ks", "Kr", "Kt", "roughness", "uroughness",
               "vroughness", "opacity", "sigma", "bumpmap"]

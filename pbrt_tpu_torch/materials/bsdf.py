@@ -18,7 +18,9 @@ glossy-kind, distribution and specular-Fresnel ids where every lane takes
 the dielectric GGX default, and the conductor and blend colours where no
 lane is a conductor or a blend. With `fams` None the gate is read from the
 fields that are present. Sampling picks a lobe uniformly over the present
-ones, as the reference does.
+ones, as the reference does. The glossy family's microfacet arithmetic in
+bsdf_f, bsdf_pdf and bsdf_sample is the utils/trace.py span bsdf.glossy,
+opened only where the family is present.
 
 Directions are in the local shading frame (z = shading normal).
 """
@@ -32,6 +34,7 @@ import torch
 from pbrt_tpu_torch.core import math as vm
 from pbrt_tpu_torch.core.math import vec3, dot, normalize, PI, INV_PI, ONE_MINUS_EPSILON
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere
+from pbrt_tpu_torch.utils.trace import span
 
 N_LOBE_SLOTS = 5   # (diffuse, diffuse_t, glossy, glossy_t, specular)
 # microfacet distribution ids
@@ -87,6 +90,15 @@ def lobe_fams(lb: Lobes):
 
 def black(c):
     return (c <= 0.0).all(-1)
+
+
+def has_glossy(lb: Lobes):
+    """[N] bool: the lanes whose lobes hold a glossy reflection lobe (a
+    microfacet or FresnelBlend weight that is not black); lb.ks present."""
+    gl = ~black(lb.ks)
+    if lb.rd_blend is not None:
+        gl = gl | ~black(lb.rd_blend)
+    return gl
 
 
 def same_hemisphere(a, b):
@@ -314,10 +326,8 @@ def bsdf_f(lb: Lobes, wo, wi, ftab=None, fams=None):
     if dift:
         f = f + torch.where((~refl)[..., None], lb.kt_diff * INV_PI, 0.0)
     if glossy:
-        has = ~black(lb.ks)
-        if lb.rd_blend is not None:
-            has = has | ~black(lb.rd_blend)
-        f = f + torch.where(has[..., None], _glossy_f(lb, wo, wi), 0.0)
+        with span("bsdf.glossy"):
+            f = f + torch.where(has_glossy(lb)[..., None], _glossy_f(lb, wo, wi), 0.0)
     if glossy_t:
         f = f + torch.where((~black(lb.kt_gloss))[..., None], _glossy_t_f(lb, wo, wi), 0.0)
     if ftab is not None:
@@ -339,10 +349,7 @@ def _lobe_weights(lb: Lobes, fams, fourier):
         dif = dif | (lb.fourier_id >= 0)
     present[..., 0] = dif.to(torch.float32)
     if glossy:
-        gl = ~black(lb.ks)
-        if lb.rd_blend is not None:
-            gl = gl | ~black(lb.rd_blend)
-        present[..., 2] = gl.to(torch.float32)
+        present[..., 2] = has_glossy(lb).to(torch.float32)
     if glossy_t:
         present[..., 3] = (~black(lb.kt_gloss)).to(torch.float32)
     if spec:
@@ -367,10 +374,11 @@ def bsdf_pdf(lb: Lobes, wo, wi, ftab=None, fams=None):
         p_dif = torch.where(lb.fourier_id >= 0, pdf_fourier(ftab, lb.fourier_id, wo, wi), p_dif)
     pdf = w[..., 0] * p_dif
     if glossy:
-        wh, _ = _half_vector(wo, wi)
-        p_gl = mf_d(wh, lb.rough_u, lb.rough_v, lb.dist) * torch.abs(wh[..., 2]) \
-            / torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-9)
-        pdf = pdf + w[..., 2] * torch.where(refl, p_gl, 0.0)
+        with span("bsdf.glossy"):
+            wh, _ = _half_vector(wo, wi)
+            p_gl = mf_d(wh, lb.rough_u, lb.rough_v, lb.dist) * torch.abs(wh[..., 2]) \
+                / torch.clamp(4.0 * torch.abs(dot(wo, wh)), min=1e-9)
+            pdf = pdf + w[..., 2] * torch.where(refl, p_gl, 0.0)
     if glossy_t:
         eta = _transmission_eta(lb, wo)
         wht = normalize(wo + wi * eta[..., None])
@@ -427,13 +435,14 @@ def bsdf_sample(lb: Lobes, wo, u_lobe, u2, ftab=None, fams=None) -> BsdfSample:
         valid = torch.where(is_gt, ok_t & ~same_hemisphere(wo, wi_t), True)
         trans = is_gt if trans is None else is_gt | trans
     if glossy:
-        wh = mf_sample_wh(torch.where(flip, -wo, wo), u2, lb.rough_u, lb.rough_v, lb.dist)
-        wh = torch.where(flip, -wh, wh)
-        wi_g = 2.0 * dot(wo, wh)[..., None] * wh - wo
-        is_gloss = sel == 2
-        wi = torch.where(is_gloss[..., None], wi_g, wi)
-        valid = torch.where(is_gloss, same_hemisphere(wo, wi_g) & (dot(wo, wh) > 0),
-                            True if valid is None else valid)
+        with span("bsdf.glossy"):
+            wh = mf_sample_wh(torch.where(flip, -wo, wo), u2, lb.rough_u, lb.rough_v, lb.dist)
+            wh = torch.where(flip, -wh, wh)
+            wi_g = 2.0 * dot(wo, wh)[..., None] * wh - wo
+            is_gloss = sel == 2
+            wi = torch.where(is_gloss[..., None], wi_g, wi)
+            valid = torch.where(is_gloss, same_hemisphere(wo, wi_g) & (dot(wo, wh) > 0),
+                                True if valid is None else valid)
     is_spec = sel == 4
     if spec:
         Fr = fresnel_dielectric(cos_o, lb.eta)

@@ -31,7 +31,7 @@ from pbrt_tpu_torch.filters import build_table
 from pbrt_tpu_torch.integrators.bdpt import render_bdpt
 from pbrt_tpu_torch.integrators.direct import li_direct
 from pbrt_tpu_torch.integrators.mlt import render_mlt
-from pbrt_tpu_torch.integrators.path import COUNTERS, li_path
+from pbrt_tpu_torch.integrators.path import COUNTERS, FAMILY_COUNTERS, li_path
 from pbrt_tpu_torch.integrators.sppm import render_sppm
 from pbrt_tpu_torch.integrators.volpath import li_volpath
 from pbrt_tpu_torch.integrators.whitted import li_whitted
@@ -181,6 +181,9 @@ def render_sampler_integrator(cs, options: Optional[Options] = None, verbose=Fal
                 film = add_samples(cs.film, film, p_film, L, ray_w, table)
             for c in COUNTERS:
                 totals[c] += cnt[c]
+            for c in FAMILY_COUNTERS:
+                if c in cnt:
+                    totals[c] = totals[c] + cnt[c] if c in totals else cnt[c]
             s += kk
             passes += 1
             if verbose:

@@ -36,9 +36,9 @@ from pbrt_tpu_torch.media import compile_media, medium_table
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene.api import Api, SceneDescription
 from pbrt_tpu_torch.scene.parser import parse_file, parse_string
-from pbrt_tpu_torch.scene.types import (AT_ALPHA, AT_K, AT_SALPHA, CompiledScene, EnvMap,
-                                        LightTable, MaterialTable, QuadricTable, SceneData,
-                                        SceneFlags)
+from pbrt_tpu_torch.scene.types import (AT_ALPHA, AT_K, AT_MAT, AT_SALPHA, CompiledScene,
+                                        EnvMap, LightTable, MaterialTable, QuadricTable,
+                                        SceneData, SceneFlags)
 from pbrt_tpu_torch.shapes.quadrics import quadric_object_bounds
 from pbrt_tpu_torch.textures import KIND_IDS as TEX_KIND_IDS, T_CHECKER3D, TextureTable
 from pbrt_tpu_torch.textures.image import build_atlas, load_image
@@ -309,7 +309,8 @@ def _param_bool(v):
 
 
 def reachable_kinds(kind, child, ids):
-    """Texture kind ids of textures ids and every texture they nest."""
+    """Kind ids of the rows ids of a texture or material table and of every
+    row they nest (a texture's children, a mix's materials)."""
     seen, todo = set(), [int(i) for i in ids]
     while todo:
         j = todo.pop()
@@ -344,6 +345,9 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
             t["env_marg_cdf"], t["env_marg_int"], dev))
     alpha_ids = np.unique(t["tri_attr"][:, AT_ALPHA:AT_SALPHA + 1].astype(np.int32))
     alpha_ids = alpha_ids[alpha_ids >= 0]
+    # the materials some primitive is given
+    shaded = np.unique(np.concatenate([t["tri_attr"][:, AT_MAT].astype(np.int32)] + (
+        [np.asarray(t["quad_mat"], np.int32)] if t["n_quadrics"] else [])))
     quads = None
     if t["n_quadrics"]:
         quads = QuadricTable(*(ten(t[k]) for k in (
@@ -393,6 +397,7 @@ def scene_from_tables(t: dict, camera, film, sampler, integrator_kind,
         alpha_kinds=reachable_kinds(t["tex_kind"], t["tex_child"], alpha_ids),
         bsdf_fams=tuple(bool(b) for b in t["bsdf_fams"]),
         mat_kinds=tuple(int(k) for k in np.unique(t["mat_kind"])),
+        shaded_kinds=reachable_kinds(t["mat_kind"], t["mat_child"], shaded[shaded >= 0]),
         has_fourier=bool(t["n_fourier"]), light_strategy=strategy,
         n_media=int(t["n_media"]), any_grid_media=bool(t["any_grid_media"]),
         accel="kdtree" if "kd" in t else "bvh", has_subsurface=has_sss, spectral=spectral)

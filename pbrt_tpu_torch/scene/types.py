@@ -137,6 +137,9 @@ class SceneFlags:
     # glossy transmission, Oren-Nayar, specular)
     bsdf_fams: Tuple[bool, ...] = (True, True, True, True, True)
     mat_kinds: Tuple[int, ...] = ()      # material kind ids in the table, ascending
+    # the kinds of the materials some primitive is given, with a mix's
+    # children, ascending (a declared material no shape uses is left out)
+    shaded_kinds: Tuple[int, ...] = ()
     has_fourier: bool = False
     light_strategy: str = "power"        # "power", "uniform" or "spatial"
     n_media: int = 0                     # named media

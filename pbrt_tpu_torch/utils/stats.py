@@ -77,3 +77,5 @@ def merge_device_counters(host_stats: StatsAccumulator, counters: dict):
     host_stats.report_counter("Intersections/Valid hits", counters["valid_hits"])
     host_stats.report_counter("Integrator/Paths terminated by RR",
                               counters["paths_terminated_rr"])
+    if "glossy_hits" in counters:
+        host_stats.report_counter("Integrator/Glossy hits", counters["glossy_hits"])

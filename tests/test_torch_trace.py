@@ -163,3 +163,129 @@ def test_cli_stats_reports_timing(tmp_path, capsys):
     for name in ("render.pass", "render.wait", "li.bsdf", "li.pair", "sampler"):
         assert f"    {name} self ms" in out, name
     assert trace.span("sampler") is trace.OFF and trace.take() == []
+
+
+# a metal sphere and a matte one over a plastic floor, 16x16 at 4 spp, depth 2:
+# glossy lobes on most hits, not on all
+GLOSSY_SCENE = """
+LookAt 0 2 5  0 0 0  0 1 0
+Camera "perspective" "float fov" 45
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+Sampler "random" "integer pixelsamples" 4
+Integrator "path" "integer maxdepth" 2
+WorldBegin
+LightSource "infinite" "rgb L" [0.4 0.5 0.6]
+AttributeBegin
+Material "metal" "float roughness" 0.05
+Shape "sphere" "float radius" 1
+AttributeEnd
+AttributeBegin
+Translate 1.8 0 0
+Material "matte" "rgb Kd" [0.7 0.2 0.1]
+Shape "sphere" "float radius" 0.6
+AttributeEnd
+AttributeBegin
+Material "plastic" "rgb Kd" [0.3 0.3 0.3] "rgb Ks" [0.4 0.4 0.4] "float roughness" 0.2
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-5 -1 -5  5 -1 -5  5 -1 5  -5 -1 5]
+AttributeEnd
+WorldEnd
+"""
+
+
+def _spans_of(cs):
+    trace.take()
+    with trace.recording():
+        img, cnt, _ = render(cs, OPTS)
+    return img, cnt, trace.take()
+
+
+def test_glossy_span_only_where_the_scene_is_glossy():
+    """bsdf.glossy opens inside NEE (bsdf_f, bsdf_pdf) and BSDF sampling on
+    a glossy scene, a bounce each, and never on a matte one."""
+    _, _, spans = _spans_of(load_scene_string(GLOSSY_SCENE, device="cpu"))
+    glossy = [s for s in spans if s.name == "bsdf.glossy"]
+    parents = [spans[s.parent].name for s in glossy]
+    # two passes, two bounces: bsdf_f and bsdf_pdf in li.nee; the sampling
+    # half and bsdf_f and bsdf_pdf of the drawn direction in li.bsdf
+    assert parents.count("li.nee") == 2 * 2 * 2 and parents.count("li.bsdf") == 2 * 2 * 3
+    _, _, spans = _spans_of(_scene())
+    assert spans and not any(s.name == "bsdf.glossy" for s in spans)
+
+
+def test_glossy_hits_count_the_glossy_lanes(monkeypatch):
+    """glossy_hits is the sum over bounces of the live lanes on a metal or
+    plastic surface, counted here from the material kinds at NEE; a matte
+    scene has no such counter."""
+    from pbrt_tpu_torch.integrators import path as P
+    from pbrt_tpu_torch.materials import M_METAL, M_PLASTIC
+    cs = load_scene_string(GLOSSY_SCENE, device="cpu")
+    seen = []
+    prepare = P.prepare_one_light
+
+    def counting(cs_, si, lobes, active, *args):
+        kind = cs_.data.mats.kind[torch.clamp(si.material, min=0).to(torch.int64)]
+        seen.append(int((active & ((kind == M_METAL) | (kind == M_PLASTIC))).sum()))
+        return prepare(cs_, si, lobes, active, *args)
+    monkeypatch.setattr(P, "prepare_one_light", counting)
+    _, cnt, passes = render(cs, OPTS)
+    assert len(seen) == passes * MAX_DEPTH
+    assert cnt["glossy_hits"] == sum(seen)
+    assert 0 < cnt["glossy_hits"] < cnt["valid_hits"]
+    monkeypatch.undo()
+    assert set(render(_scene(), OPTS)[1]) == set(P.COUNTERS)
+
+
+def test_glossy_frame_is_the_same_with_spans_on():
+    cs = load_scene_string(GLOSSY_SCENE, device="cpu")
+    img_off, cnt_off, _ = render(cs, OPTS)
+    img_on, cnt_on, spans = _spans_of(cs)
+    assert any(s.name == "bsdf.glossy" for s in spans)
+    assert torch.equal(img_on, img_off) and cnt_on == cnt_off
+
+
+def test_matte_shapes_count_no_glossy_hits():
+    """Where every shape is matte, glossy_hits is not counted and issues no
+    op, though a plastic declared and given to no shape (as config 2's
+    floor line) turns the glossy family on: the counters are COUNTERS
+    alone, the render issues fewer ops than with the counter forced on
+    (which counts 0), and the same ops in the same order with spans
+    recorded or not."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from pbrt_tpu_torch.integrators.path import COUNTERS
+
+    def ops_of(cs, on=False):
+        trace.take()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            if on:
+                with trace.recording():
+                    cnt = render(cs, OPTS)[1]
+            else:
+                cnt = render(cs, OPTS)[1]
+        trace.take()
+        return cnt, [e.name() for e in prof.profiler.kineto_results.events()
+                     if e.name().startswith("aten::")]
+
+    cs = load_scene_string(SCENE.replace('Material "matte"', 'Material "plastic"\nMaterial "matte"'),
+                           device="cpu")
+    assert cs.flags.bsdf_fams[1] and cs.flags.shaded_kinds == (0,)
+    cnt, off = ops_of(cs)
+    assert set(cnt) == set(COUNTERS)
+    assert len(off) > 100 and ops_of(cs, on=True)[1] == off
+    forced = dataclasses.replace(cs, flags=dataclasses.replace(cs.flags,
+                                                               shaded_kinds=cs.flags.mat_kinds))
+    cnt, more = ops_of(forced)
+    assert cnt["glossy_hits"] == 0 and len(more) > len(off)
+
+
+def test_cli_stats_reports_glossy(tmp_path, capsys):
+    """--stats prints the glossy hits beside the other counters and the
+    bsdf.glossy span's self ms under Timing."""
+    scene = tmp_path / "g.pbrt"
+    scene.write_text(GLOSSY_SCENE)
+    STATS.clear()
+    assert main(["--device", "cpu", "--quiet", "--stats", "--wavefront", "512",
+                 "--outfile", str(tmp_path / "g.png"), str(scene)]) == 0
+    out = capsys.readouterr().out
+    assert "    Glossy hits" in out and "    bsdf.glossy self ms" in out

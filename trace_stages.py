@@ -16,7 +16,9 @@ FILE where given:
              span against all of it, and the operations that lead their
              launch the most;
   api        the host's CUDA API calls a frame: by name, and by the
-             innermost span open at each call.
+             innermost span open at each call;
+  counters   the last profiled frame's counters, as render() returns
+             them (glossy_hits among them where the scene is glossy).
 
 Needs a CUDA device; runs from the root of a checkout.
 It lives outside benchmark/, whose measuring code imports nothing of the
@@ -101,7 +103,7 @@ def run(name, seed):
             torch.cuda.synchronize()
             with trace.recording():
                 for _ in range(k):
-                    render(cs, opts)
+                    counters = render(cs, opts)[1]
             torch.cuda.synchronize()
     evs = devtrace.events(prof)
     sp, recs, apis = trace.take(), S.launch_records(prof), S.api_calls(prof)
@@ -117,7 +119,7 @@ def run(name, seed):
                           "idle_gaps": devtrace.idle_before(evs)},
             "join": dict(S.join_summary(sp, recs), device_ms_per_frame=total,
                          named_device_ms_per_frame=named, spans=len(sp), leads=leads(sp, recs)),
-            "api": api_table(sp, apis, k)}
+            "api": api_table(sp, apis, k), "counters": counters}
 
 
 def main(argv=None):
